@@ -1,0 +1,104 @@
+"""The PyTorch port stands alone: no JAX, nothing of the reference
+package, CUDA by default, and clear errors for what it does not cover."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "libnyquist_torch"
+FIXTURES = ROOT / "tests" / "fixtures"
+
+
+def _port_modules():
+    mods = []
+    for p in sorted(PKG.rglob("*.py")):
+        parts = p.relative_to(ROOT).with_suffix("").parts
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def test_port_modules_import_without_jax():
+    mods = _port_modules()
+    assert "libnyquist_torch.ops.comb" in mods
+    # Only what the port's imports add counts: an interpreter start-up hook
+    # may load jax before any of them runs.
+    code = (
+        "import importlib, sys\n"
+        "before = set(sys.modules)\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in set(sys.modules) - before if k.split('.')[0]"
+        " in ('jax', 'jaxlib', 'libnyquist_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_sources_name_no_jax():
+    """The package's sources never name the reference package or JAX.
+    chip_smoke.py imports neither (its kernel table names the TPU kernel
+    each CUDA kernel replaces, by file and line)."""
+    srcs = [p for p in PKG.rglob("*") if p.suffix in (".py", ".c", ".h", ".cu")]
+    assert any(p.suffix == ".cu" for p in srcs)
+    for p in srcs:
+        text = p.read_text()
+        assert "libnyquist_tpu" not in text, p
+        assert "import jax" not in text and "from jax" not in text, p
+    smoke = (ROOT / "chip_smoke.py").read_text()
+    assert not re.search(r"^\s*(import|from)\s+(jax|libnyquist_tpu)\b",
+                         smoke, re.M)
+
+
+def test_load_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    import libnyquist_torch as nqt
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        nqt.load(str(FIXTURES / "ms8ch.opus"), device=None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        nqt.load(str(FIXTURES / "ms8ch.opus"), device="cuda")
+
+
+@pytest.mark.parametrize("name", [
+    "l1_stereo_44k.mp3", "floor0_mono8k.ogg", "sv7_stereo.mpc",
+    "hybrid_mono.wv",
+])
+def test_other_formats_name_their_roadmap_item(name):
+    import libnyquist_torch as nqt
+
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        nqt.load(str(FIXTURES / name), device="cpu")
+
+
+def test_unified_path_rejects_lm0():
+    from libnyquist_torch.runtime import serving
+
+    freq = np.zeros((4, 2, 120), np.float32)
+    z = np.zeros(4, np.int32)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        serving.synthesize_streams_unified(
+            freq, z, z, z.astype(np.float64), z, 2, device="cpu")
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    from libnyquist_torch.ops import comb
+
+    before = comb.comb_filter_cuda.launches
+    x = torch.zeros(1, comb.CHUNK)
+    with pytest.raises(ValueError, match="CUDA"):
+        comb.comb_filter_cuda(
+            x, torch.zeros(1, comb.HIST), torch.full((1, 1), 15, dtype=torch.int32),
+            torch.full((1, 1), 15, dtype=torch.int32), torch.zeros(1, 1, 3),
+            torch.zeros(1, 1, 3), torch.zeros(1, 1, comb.CHUNK))
+    assert comb.comb_filter_cuda.launches == before
