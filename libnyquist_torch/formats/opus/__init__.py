@@ -12,10 +12,16 @@ route for mapping family 0, the demux route for other families) and
 family-1 multistream files whose elementary streams share one
 frame-size sequence. Everything else raises NotImplementedError naming
 the ROADMAP.md queue item that covers it.
+
+Two host halves feed the device: the full native decode to spectra
+(``decode_celt_raw``, what ``load()`` uses) and the bits-only trace with
+its replay arrays (``trace_celt_packets`` / ``trace_celt_ogg``, the
+serving path: the device replays the PVQ value plane, ops/celt_replay.py).
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct
 from dataclasses import dataclass
 from typing import List
@@ -35,6 +41,7 @@ from .celt_host import (
     celt_decode_stream_raw,
     celt_scan_ogg_native,
 )
+from .iy_split import celt_trace_stream_arrays, trace_frames
 from .packet import MODE_CELT_ONLY, _endband_for_bandwidth, parse_packet
 
 GENERAL_PATH = ("SILK, hybrid and lost-packet Opus decoding: see "
@@ -197,6 +204,53 @@ def decode_celt_raw(packets, channels: int):
         raise NotImplementedError(GENERAL_PATH)
     return celt_decode_stream_raw(
         CeltDecoderState(channels=channels), *_celt_frame_feed(parsed))
+
+
+# The serving trace: raw iy values in the compact heap, B <= 1 leaves as
+# codeword indices for the device cwrsi.
+_SERVING_TRACE = dict(with_heap=False, raw_iy=True, xs_heap=True,
+                      idx_mode=True)
+
+
+def _trace_result(tr):
+    from ...ops.celt_replay import build_replay_arrays
+
+    arrs, _static, key = build_replay_arrays(tr)
+    return tr, arrs, key, float(np.sum(tr.fsz)) / 48000.0
+
+
+def trace_celt_packets(packets, channels: int):
+    """iy-split host half for raw CELT-only packets: parse, one native
+    bits-only trace decode with a fresh decoder state (serving modes:
+    raw_iy, xs_heap, idx_mode), then the replay-array assembly. The
+    float value plane is left to the device (ops/celt_replay.py).
+    Returns (CeltTrace, arrs, static_key, audio_seconds)."""
+    parsed = [parse_packet(p) for p in packets]
+    if any(pp.mode != MODE_CELT_ONLY for pp in parsed):
+        raise NotImplementedError(GENERAL_PATH)
+    tr = trace_frames(CeltDecoderState(channels=channels),
+                      *_celt_frame_feed(parsed), **_SERVING_TRACE)
+    if tr is None:
+        raise DecodeError("no CELT frames to trace")
+    return _trace_result(tr)
+
+
+def trace_celt_ogg(data: bytes):
+    """trace_celt_packets for a whole Ogg Opus file through the native
+    scan (single CELT-only stream, mapping family 0). Raises
+    NotImplementedError for what the scan declines."""
+    scan = celt_scan_ogg_native(data)
+    if scan is None:
+        raise NotImplementedError(GENERAL_PATH)
+    payload, offs, lens, fsz, ends, chs, info = scan
+    pay_p = payload.ctypes.data_as(ctypes.c_char_p)
+    tr = celt_trace_stream_arrays(
+        CeltDecoderState(channels=int(info[0])), pay_p, offs, lens, fsz,
+        ends, chs, **_SERVING_TRACE)
+    del pay_p  # payload kept alive by this frame for the call's duration
+    if tr is None:
+        raise DecodeError("no CELT frames to trace")
+    return _trace_result(tr)
 
 
 def decode_celt_infos(packets, channels: int) -> List[dict]:

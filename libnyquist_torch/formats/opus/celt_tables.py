@@ -78,3 +78,12 @@ COMB_GAINS = [
     [0.4638671875, 0.2680664062, 0.0],
     [0.7998046875, 0.1000976562, 0.0],
 ]
+
+# Hadamard (de)interleave row order per stride (reference: celt/bands.c
+# ordery_table).
+ORDERY_TABLE = {
+    2: [1, 0],
+    4: [3, 0, 2, 1],
+    8: [7, 0, 4, 3, 6, 1, 5, 2],
+    16: [15, 0, 8, 7, 12, 3, 11, 4, 14, 1, 9, 6, 13, 2, 10, 5],
+}

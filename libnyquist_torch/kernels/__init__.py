@@ -64,6 +64,16 @@ def _build(name: str) -> pathlib.Path:
     return out
 
 
+def build_all(names) -> None:
+    """Build several kernel libraries at once, one nvcc process each, all
+    started together (a thread per process). load() then finds them."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = list(names)
+    with ThreadPoolExecutor(max(len(names), 1)) as pool:
+        list(pool.map(_build, names))
+
+
 def load(name: str) -> ctypes.CDLL:
     """The kernel library ``name``, built on first use. Raises on failure."""
     with _LOCK:

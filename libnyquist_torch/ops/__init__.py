@@ -1,2 +1,3 @@
-"""Device ops of the port: synthesis products, deemphasis and the comb
-postfilter (plain PyTorch versions beside the CUDA kernel)."""
+"""Device ops of the port: the PVQ value-plane replay with its spreading
+rotation, synthesis products, the comb postfilter and deemphasis (plain
+PyTorch versions beside the CUDA kernels)."""

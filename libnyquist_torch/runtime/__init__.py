@@ -1,2 +1,2 @@
 """Runtime of the port: native host library loader, shape bucketing and
-the batched synthesis pipelines."""
+the batched replay and synthesis pipelines."""

@@ -1,8 +1,9 @@
 """Native host-ops loader: builds and binds the port's CELT host library.
 
-The entropy decode (range decoder, bit allocation, PVQ index decode) and
-the Ogg/Opus packet scan are branchy byte-serial work that stays on the
-host in C (``libnyquist_torch/native/``). The library is built with the
+The entropy decode (range decoder, bit allocation, PVQ index decode),
+the bits-only trace decode with its leaf packer, and the Ogg/Opus packet
+scan are branchy byte-serial work that stays on the host in C
+(``libnyquist_torch/native/``). The library is built with the
 system ``cc`` at first use into ``libnyquist_torch/_build/`` and bound
 with ctypes. There is no Python fallback: a failed build raises.
 """
@@ -18,7 +19,7 @@ import threading
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 _NATIVE_DIR = _PKG / "native"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("celt_bands.c", "ogg_opus.c")
+SOURCES = ("celt_bands.c", "ogg_opus.c", "replay_pack.c")
 _HEADERS = ("ecdec.h",)
 _LIB = None
 _LOCK = threading.Lock()
@@ -58,8 +59,11 @@ def _build() -> pathlib.Path:
 
 def _bind(L: ctypes.CDLL) -> ctypes.CDLL:
     c_int, c_i32, c_i64 = ctypes.c_int, ctypes.c_int32, ctypes.c_int64
+    i8p = ctypes.POINTER(ctypes.c_int8)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
     i16p = ctypes.POINTER(ctypes.c_int16)
     i32p = ctypes.POINTER(ctypes.c_int32)
+    u32p = ctypes.POINTER(ctypes.c_uint32)
     i64p = ctypes.POINTER(ctypes.c_int64)
     f32p = ctypes.POINTER(ctypes.c_float)
     f64p = ctypes.POINTER(ctypes.c_double)
@@ -77,6 +81,51 @@ def _bind(L: ctypes.CDLL) -> ctypes.CDLL:
         c_int, c_int,                           # downsample, start
         c_i32, f32p,                            # nmax, freq_out
         i32p, i32p, f64p, i32p, i32p,           # sb, pfp, pfg, pft, sil
+    ]
+    # The bits-only trace decode: celt_decode_stream's arguments up to
+    # the state, then the trace outputs in the order of its C prototype
+    # (native/celt_bands.c celt_decode_stream_trace).
+    L.celt_decode_stream_trace.restype = c_i64
+    L.celt_decode_stream_trace.argtypes = [
+        ctypes.c_char_p, i64p, i64p,            # payload, offs, lens
+        i32p, i32p, i32p, c_i64,                # fsz, ends, chs, n
+        i16p, c_int, i16p, i16p,                # eBands, nb, logN, ci
+        ctypes.c_char_p, ctypes.c_char_p,       # cache_bits, cache_caps
+        ctypes.c_char_p, c_int,                 # allocVectors, nbAV
+        f64p, i32p,                             # eMeans, prob_model
+        c_int, c_int,                           # shortMdctSize, effEBands
+        f64p, f64p, f64p, f64p, i64p,           # state + rng
+        c_int, c_int,                           # CC, CCout
+        c_int, c_int,                           # downsample, start
+        i32p, i32p, f64p, i32p, i32p,           # sb, pfp, pfg, pft, sil
+        i64p,                                   # tcaps
+        i32p, i8p, i8p, i8p,                    # lf frame, band, call, type
+        i16p, i16p, i32p, i16p,                 # lf off, len, k, stride
+        f64p, u32p, i64p,                       # lf gain, seed, iy_off
+        i16p,                                   # iy_heap
+        u8p, i32p, i8p,                         # bd mode, eff_lb, tf
+        i16p, i16p, i16p,                       # bd imid, iside, itheta
+        i8p, i8p, i8p,                          # bd inv, sign, cflag
+        i32p, i8p, i8p, i8p,                    # ac frame, band, c, k
+        u32p, f32p,                             # ac seed, r
+        i32p, f32p,                             # fr_misc, fr_gains
+        f32p, c_i32,                            # xs_dense, xs_nmax
+        i32p, i32p, i32p,                       # rot row, col, pk
+        f32p, f32p, i32p,                       # rot th, g, leaf
+    ]
+    L.celt_pvq_bucket_count.restype = c_i64
+    L.celt_pvq_bucket_count.argtypes = [
+        i8p, i16p, c_i64,                       # lf_type, lf_len, nleaf
+        i32p, c_int, i64p,                      # edges, nedges, counts
+    ]
+    L.celt_pvq_bucket_fill.restype = None
+    L.celt_pvq_bucket_fill.argtypes = [
+        i8p, i16p, i32p, i8p,                   # lf type, len, frame, call
+        i8p, i16p, i32p, u32p,                  # lf band, off, k, seed
+        c_i64, i32p, c_int,                     # nleaf, edges, nedges
+        i64p, i64p, c_i64, c_i64,               # bucket_base, band_off, nmax, F
+        i32p, i32p, u32p, i32p,                 # out n, k, i, tgt
+        i64p,                                   # rs_slot
     ]
     L.ogg_opus_celt_scan.restype = c_i64
     L.ogg_opus_celt_scan.argtypes = [

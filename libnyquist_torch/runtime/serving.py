@@ -7,14 +7,16 @@ per-stream. Two shapes:
 * the segmented path (``synthesize_streams``): streams with equal frame
   signatures — the per-frame (LM, shortBlocks) sequence — synthesize one
   (LM, shortBlocks) run at a time;
-* the unified chunked path (``unified_step_row_body`` and its drivers
-  ``synthesize_streams_unified`` / ``run_synthesis_batched``): one step
-  per chunk of frames, long and short blocks mixed by a per-frame mask,
-  so a stream costs F/f_chunk steps instead of one call per run.
+* the unified chunked path (``unified_step_row_body`` under the one step
+  loop ``run_synthesis_batched``; ``synthesize_streams_unified`` is its
+  K = 1 call): one step per chunk of frames, long and short blocks mixed
+  by a per-frame mask, so a stream costs F/f_chunk steps instead of one
+  call per run.
 
-``run_synthesis_batched`` takes the device replay's output layout
-(rows ordered ``c*K + k``) and the bench's synthesis-table dict, so the
-replay slots in front of it unchanged.
+``run_stream_batched`` is the main path: it replays each stream's PVQ
+value plane on the device from its host trace (``ops/celt_replay.py``)
+into the layout ``run_synthesis_batched`` takes (rows ordered
+``c*K + k``) and runs the step loop on it.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 from ..device import resolve_device
 from ..formats.opus.celt_host import COMBFILTER_MINPERIOD
 from ..formats.opus.celt_tables import COMB_GAINS, mode48000
+from ..ops import celt_replay as replay_ops
 from ..ops import comb as comb_ops
 from ..ops import imdct as imdct_ops
 from ..ops import scan_iir
@@ -236,22 +239,6 @@ def expand_comb_params(TA, gA, TB1, gB1, fade_pat, N, short_mdct):
             g1.reshape(R, nch, 3).contiguous(), fade.contiguous())
 
 
-def unified_step_body(spec, mask_s, TA, gA, TB1, gB1, fade_pat,
-                      T1m, T1p, T8m, T8p, tails, hist, mem,
-                      overlap, short_mdct):
-    """One serving step with comb params shared by every row:
-    mask_s/TA/TB1 [F], gA/gB1 [F, 3]. See unified_step_row_body."""
-    R = spec.shape[0]
-
-    def rows(v):
-        return v[None].expand((R,) + tuple(v.shape))
-
-    return unified_step_row_body(
-        spec, rows(mask_s), rows(TA), rows(gA), rows(TB1), rows(gB1),
-        fade_pat, T1m, T1p, T8m, T8p, tails, hist, mem, overlap,
-        short_mdct)
-
-
 def unified_step_row_body(spec, mask_s, TA, gA, TB1, gB1, fade_pat,
                           T1m, T1p, T8m, T8p, tails, hist, mem,
                           overlap, short_mdct, *, with_comb=True,
@@ -320,7 +307,8 @@ def synthesize_streams_unified(
     freq, short_blocks, pf_pitch, pf_gain, pf_tapset, channels,
     f_chunk: int = F_CHUNK, device=None,
 ):
-    """Whole-stream device synthesis without segmentation.
+    """Whole-stream device synthesis without segmentation: a K = 1 call
+    of run_synthesis_batched.
 
     Args:
       freq: [F, CC, N] float32 denormalised spectra (the native stream
@@ -332,51 +320,19 @@ def synthesize_streams_unified(
     dev = resolve_device(device)
     mode = mode48000()
     F, CC, N = freq.shape
-    B_short = int(max(short_blocks)) if len(short_blocks) else 0
     LM = (N // mode.shortMdctSize).bit_length() - 1
     if LM == 0:
         raise NotImplementedError(
             "2.5 ms (LM = 0) frames in the unified serving path: see "
             "ROADMAP.md, queue item 'Opus general path'")
-    T1m, T1p, T8m, T8p = (torch.from_numpy(m).to(dev)
-                          for m in _synthesis_matrices_np(N, B_short))
-
-    TA, gA, TB1, gB1 = postfilter_params_arrays(
-        short_blocks, pf_pitch, pf_gain, pf_tapset)
-    fade_d = torch.from_numpy(
-        _fade_pattern(N, mode.overlap, mode.shortMdctSize)).to(dev)
-
-    R = CC
-    tails = torch.zeros(R, mode.overlap, device=dev)
-    hist = torch.zeros(R, comb_ops.HIST, device=dev)
-    mem = torch.zeros(R, device=dev)
-
-    def up(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-    outs = []
-    for f0 in range(0, F, f_chunk):
-        f1 = min(f0 + f_chunk, F)
-        Fc = f1 - f0
-        spec = np.zeros((CC, f_chunk, N), np.float32)
-        spec[:, :Fc] = np.transpose(freq[f0:f1], (1, 0, 2))
-        ms = np.zeros(f_chunk, np.float32)
-        ms[:Fc] = np.asarray(short_blocks[f0:f1]) != 0
-        TAc = np.full(f_chunk, COMBFILTER_MINPERIOD, np.int32)
-        TAc[:Fc] = TA[f0:f1]
-        gAc = np.zeros((f_chunk, 3), np.float32)
-        gAc[:Fc] = gA[f0:f1]
-        TB1c = np.full(f_chunk, COMBFILTER_MINPERIOD, np.int32)
-        TB1c[:Fc] = TB1[f0:f1]
-        gB1c = np.zeros((f_chunk, 3), np.float32)
-        gB1c[:Fc] = gB1[f0:f1]
-        pcm, tails, hist, mem = unified_step_body(
-            up(spec), up(ms), up(TAc), up(gAc), up(TB1c), up(gB1c),
-            fade_d, T1m, T1p, T8m, T8p, tails, hist, mem,
-            mode.overlap, mode.shortMdctSize,
-        )
-        outs.append(pcm[:, : Fc * N])
-    return torch.cat(outs, dim=1).T
+    n_steps = -(-F // f_chunk)
+    synth = synth_from_numpy(synth_tables(
+        [(short_blocks, pf_pitch, pf_gain, pf_tapset)], N, n_steps,
+        f_chunk), dev)
+    spec = torch.from_numpy(np.ascontiguousarray(
+        np.transpose(freq, (1, 0, 2)), np.float32)).to(dev)  # [CC, F, N]
+    _, pcm = run_synthesis_batched(spec, synth, 1, CC, n_steps, f_chunk)
+    return pcm.T
 
 
 def synth_tables(streams, N, n_steps, f_chunk) -> dict:
@@ -469,3 +425,58 @@ def run_synthesis_batched(spec, synth, K, CC, n_steps, f_chunk, *,
         n_real = max(0, min(F - lo, f_chunk)) * N
         pcm_all[:, lo * N : lo * N + n_real] = pcm[:, :n_real]
     return acc.reshape(CC, K).T, pcm_all
+
+
+def replay_streams(streams, K, CC):
+    """Replay K streams' PVQ value planes on the device into the
+    synthesis layout.
+
+    streams: per stream ``(arrs, static_key)``: the device dict of
+    ops.celt_replay.replay_arrays_from_numpy and the structure key of
+    build_replay_arrays. The streams share the frame count F and the
+    frame size N but need not share a key (band classes, bucket sizes
+    and sigma sets may differ): each is replayed on its own (one
+    rotation-kernel launch per raw-iy stream) and written into its rows.
+    Returns spec [CC*K, F, N], rows ordered channel-major (``c*K + k``).
+    """
+    if len(streams) != K:
+        raise ValueError(f"{len(streams)} streams, expected K = {K}")
+    F, N = streams[0][1][:2]
+    for k, (_, key) in enumerate(streams):
+        if key[:2] != (F, N):
+            raise ValueError(
+                f"stream {k} has (F, N) = {key[:2]}, expected {(F, N)}")
+    spec = None
+    for k, (arrs, key) in enumerate(streams):
+        fq = replay_ops._replay_builder(key)(arrs)       # [CCout*F, N]
+        if fq.shape[0] < CC * F:
+            raise ValueError(f"stream {k} replays {fq.shape[0] // F} "
+                             f"channels, expected CC = {CC}")
+        if spec is None:
+            spec = fq.new_empty(CC * K, F, N)
+        for c in range(CC):
+            spec[c * K + k] = fq[c * F : (c + 1) * F]
+    return spec
+
+
+def run_stream_batched(streams, synth, K, CC, n_steps, f_chunk, *,
+                       with_synth=True, with_comb=True, with_deemph=True):
+    """The K-stream serving program: device replay of every stream's
+    trace, then the synthesis step loop (at K = 1, the single-stream
+    program).
+
+    Args:
+      streams: per stream ``(arrs, static_key)`` (see replay_streams).
+      synth: device dict from synth_from_numpy.
+    Returns (acc [K, CC] per-row PCM sums, pcm [CC*K, F*N]) as
+    run_synthesis_batched does. with_synth=False stops after the replay
+    and returns (the per-row sums of the replayed spectra [K, CC], None);
+    with_comb / with_deemph switch a synthesis stage off. The switches
+    serve the per-stage time split; serving runs with all three on.
+    """
+    spec = replay_streams(streams, K, CC)
+    if not with_synth:
+        return spec.sum(dim=(1, 2)).reshape(CC, K).T, None
+    return run_synthesis_batched(spec, synth, K, CC, n_steps, f_chunk,
+                                 with_comb=with_comb,
+                                 with_deemph=with_deemph)

@@ -27,7 +27,9 @@ def _port_modules():
 
 def test_port_modules_import_without_jax():
     mods = _port_modules()
-    assert "libnyquist_torch.ops.comb" in mods
+    for name in ("ops.comb", "ops.rot", "ops.celt_replay",
+                 "formats.opus.iy_split", "runtime.serving"):
+        assert f"libnyquist_torch.{name}" in mods
     # Only what the port's imports add counts: an interpreter start-up hook
     # may load jax before any of them runs.
     code = (
