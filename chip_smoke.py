@@ -8,18 +8,31 @@ builds everything it runs from this checkout. Phases, in order; any
 failure exits non-zero before the result line:
 
 0. card name and power limit (nvidia-smi); build the native host
-   library and the CUDA kernels (csrc/comb.cu, csrc/rot.cu, one nvcc
-   each, started together); the host half of the serving batch: K = 8
+   library, the CUDA kernels (csrc/comb.cu, csrc/rot.cu) and the
+   shared-memory probe (tools/smem_round_trip.cu), one nvcc each, all
+   started together; the host half of the serving batch: K = 8
    stereo streams of 11,100 frames of 20 ms (3.7 min each), stream k
    cycling the packets of case (0, 1, 6, 7, 13)[k % 5] with a fresh
    decoder state, once as the bits-only trace + replay arrays (the main
-   path) and once as the full native decode (the comparison);
+   path) and once as the full native decode (the comparison); from the
+   batch's real tables, what the kernels have to live with: the
+   postfilter's lag and zero-gain statistics and its step plan, the
+   rotation's markers, sub-segment lengths and Givens steps per row;
 1. kernel phase: every kernel against its plain PyTorch version on the
    card, times by CUDA events. K1 (comb) at the reference tests' shapes
-   and at the serving shape (16 rows x 40,960 chunks) on random inputs.
-   K2 (rotation) on a seeded plane with eight sigma classes and at the
-   serving shape [800, 22,200] on the real markers and values of stream
-   0 (captured from its replay);
+   and at the serving shape (16 rows x 40,960 chunks) on random inputs
+   (a fresh lag per chunk, the hardest case for wide steps); with every
+   lag 15 (every step one chunk), with all gains zero, on the serving
+   batch's real per-frame tables, and at a row count that is not 16;
+   the steps each launch took against the plain step plan; timed on
+   wide steps and, with every lag 15, on steps of one chunk, beside the
+   chain bound from the measured shared-memory round trip of a block of
+   the kernel's size. K2 (rotation) through the
+   row-major entry on a seeded plane with eight sigma classes, on a
+   plane where later markers cut sub-segments short and rows have no
+   marker, and at the serving shape [22,200 x 960] on the real markers
+   and values of stream 0 (captured from its replay), none of which
+   rotates before the first column of its sigma class;
 2. load phase: load() of tests/fixtures/ms8ch.opus (8 channels, family
    1) against tests/golden/ms8ch.npz, and opus_packets.bin CELT cases
    0, 1, 2 (mono), 3, 6, 7, 13 against their libopus PCM, all within
@@ -46,6 +59,7 @@ line {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import pathlib
 import statistics
@@ -53,6 +67,7 @@ import struct
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -69,8 +84,10 @@ K_STREAMS = 8
 SERVE_FRAMES = 11100
 F_CHUNK = 512
 COMB_SERVE_SHAPE = (16, 40960)    # B = K*CC rows, 512*960/12 chunks
-ROT_SERVE_SHAPE = (800, 22200)    # WB positions, 2F rows of one stream
+ROT_SERVE_SHAPE = (22200, 800)    # 2F rows of one stream, WB positions
 KERNELS = ("comb", "rot")
+PROBE_SRC = ROOT / "tools" / "smem_round_trip.cu"
+COMB_THREADS = 128                # threads of one row's block in csrc/comb.cu
 
 
 def log(msg: str) -> None:
@@ -136,6 +153,23 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor):
     return d, d / max(ref.abs().max().item(), 1e-30)
 
 
+def build_probe(kernels):
+    """The shared-memory round-trip probe, built beside the kernels;
+    returns its bound launch function."""
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = kernels.BUILD_DIR / "libsmem_round_trip.so"
+    cmd = [kernels.nvcc_path(), *kernels.ARCH_FLAGS, "-std=c++17", "-O3",
+           "-shared", "-Xcompiler", "-fPIC", "-o", str(out), str(PROBE_SRC)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    check(proc.returncode == 0, f"nvcc failed for {PROBE_SRC.name}:\n"
+          f"{proc.stdout}\n{proc.stderr}")
+    launch = ctypes.CDLL(str(out)).smem_round_trip_launch
+    launch.restype = ctypes.c_int
+    launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
+    return launch
+
+
 def phase0_build(nqt_native, kernels):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -147,16 +181,20 @@ def phase0_build(nqt_native, kernels):
     nqt_native.lib()
     t_host = time.perf_counter() - t0
     t0 = time.perf_counter()
-    kernels.build_all(KERNELS)
+    with ThreadPoolExecutor(1) as pool:
+        probe = pool.submit(build_probe, kernels)
+        kernels.build_all(KERNELS)
+        probe = probe.result()
     for name in KERNELS:
         kernels.load(name)
     log(f"phase 0: host library built in {t_host:.2f} s; kernels "
-        f"{', '.join(KERNELS)} in {time.perf_counter() - t0:.2f} s")
+        f"{', '.join(KERNELS)} and the probe in "
+        f"{time.perf_counter() - t0:.2f} s")
     for name, rep in kernels.build_log.items():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas[{name}]: {line.strip()}")
-    return card
+    return card, probe
 
 
 def host_batch(card):
@@ -208,6 +246,86 @@ def host_batch(card):
                              "trace_array_bytes": nbytes}
 
 
+def comb_table_stats(synth, K, n_steps):
+    """What wide steps can buy on the batch's real postfilter tables
+    (host side, counts only): lags of the chunks that filter at all, the
+    share of chunks and of frames whose gains are all zero, the longest
+    legal step at each chunk and the step plan's length per launch."""
+    from libnyquist_torch.ops import comb
+    from libnyquist_torch.runtime import serving
+
+    names = ("TA", "gA", "TB1", "gB1")
+    tabs = {k: torch.from_numpy(np.ascontiguousarray(synth[k])) for k in names}
+    fade = torch.from_numpy(synth["fade"])
+    active_f = ((tabs["gA"] != 0).any(-1) | (tabs["gB1"] != 0).any(-1))
+    edges = [15, 26, 38, 50, 62, 74, 86, 98, 200, 400, 1025]
+    lag_hist = np.zeros(len(edges) - 1, np.int64)
+    width_hist = np.zeros(comb.MAX_STEP + 1, np.int64)
+    chunks = active = steps = 0
+    slowest = []
+    for step in range(n_steps):
+        T0, T1, g0, g1, _ = serving.expand_comb_params(
+            tabs["TA"][:, step].int(), tabs["gA"][:, step],
+            tabs["TB1"][:, step].int(), tabs["gB1"][:, step], fade, 960, 120)
+        act = (g0 != 0).any(-1) | (g1 != 0).any(-1)
+        chunks += act.numel()
+        active += int(act.sum())
+        lag_hist += np.histogram(torch.minimum(T0, T1)[act].numpy(),
+                                 edges)[0]
+        width_hist += np.bincount(
+            comb.comb_step_widths(T0, T1, g0, g1).numpy().ravel(),
+            minlength=comb.MAX_STEP + 1)
+        count = [len(p) for p in comb.comb_step_plan(T0, T1, g0, g1)]
+        steps += sum(count)
+        slowest.append(max(count))
+    log(f"  comb tables of the batch ({K} streams, {n_steps} launches, "
+        f"{chunks} chunks of 12): chunks with all six gains zero "
+        f"{1 - active / chunks:.4f}, frames with all gains zero "
+        f"{1 - active_f.float().mean().item():.4f} (the padding of the "
+        f"last launch included)")
+    log("  min(T0, T1) over filtering chunks, bins "
+        + ", ".join(f"{a}-{b - 1}: {n}" for a, b, n in
+                    zip(edges, edges[1:], lag_hist)))
+    log("  longest legal step at each chunk (chunks: count) "
+        + ", ".join(f"{m}: {n}" for m, n in enumerate(width_hist) if m)
+        + f"; plan {steps} steps, mean width {chunks / steps:.3f} chunks; "
+        f"slowest row per launch {min(slowest)}..{max(slowest)} steps")
+    return {"zero_gain_chunk_share": 1 - active / chunks,
+            "plan_steps": steps, "mean_step_chunks": chunks / steps,
+            "slowest_row_steps": slowest}
+
+
+def rot_marker_stats(traces):
+    """The load balance the rotation kernel has to live with, per
+    stream, from the compact markers (host side, counts only)."""
+    out = []
+    for k, (_, arrs, key) in enumerate(traces):
+        F2 = 2 * key[0]
+        keep = arrs["rot_rows"] < F2
+        rows, pk, th = (arrs[n][keep] for n in ("rot_rows", "rot_pk",
+                                                "rot_th"))
+        ln, sg = (pk >> 4) & 0x1FF, (pk & 15) - 1
+        rotating = th > 0
+        steps = np.where(rotating, np.maximum(ln - 1, 0)
+                         + np.maximum(ln - 2, 0)
+                         + np.where(sg > 0, np.maximum(ln - sg, 0)
+                                    + np.maximum(ln - 2 * sg, 0), 0), 0)
+        per_row = np.bincount(rows, weights=steps, minlength=F2)
+        per_row_m = np.bincount(rows, minlength=F2)
+        lens, counts = np.unique(ln[rotating], return_counts=True)
+        out.append({"markers": int(keep.sum()),
+                    "rotating": int(rotating.sum()),
+                    "steps_per_row_mean": float(per_row.mean()),
+                    "steps_per_row_max": float(per_row.max())})
+        log(f"  rot markers, stream {k}: {keep.sum()} markers "
+            f"({per_row_m.mean():.1f} a row, max {per_row_m.max()}), "
+            f"{rotating.sum()} rotating sub-segments, lengths "
+            + " ".join(f"{a}:{b}" for a, b in zip(lens, counts))
+            + f"; Givens steps a row mean {per_row.mean():.1f} max "
+            f"{per_row.max():.0f}, longest sub-segment {steps.max()} steps")
+    return out
+
+
 def random_comb_args(B, n, seed, dev, realistic):
     """Comb inputs from numpy: the shapes and seeds of the reference
     kernel test, or (realistic) CELT-range gains that keep the IIR
@@ -234,8 +352,35 @@ def random_comb_args(B, n, seed, dev, realistic):
     return [torch.from_numpy(a).to(dev) for a in arrs]
 
 
+def real_table_comb_args(synth, step, K, CC, n, seed, dev):
+    """Comb inputs on the serving batch's real per-frame tables: launch
+    `step`'s lags and gains for the K*CC rows, expanded per chunk as the
+    main path expands them and cut to the first n chunks; x and the
+    history random at PCM scale."""
+    from libnyquist_torch.runtime import serving
+
+    def rows_of(name):
+        v = synth[name][:, step]
+        return v.repeat((CC,) + (1,) * (v.dim() - 1))
+
+    T0, T1, g0, g1, fade = (t[:, :n].contiguous()
+                            for t in serving.expand_comb_params(
+        rows_of("TA"), rows_of("gA"), rows_of("TB1"), rows_of("gB1"),
+        synth["fade"], 960, 120))
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((K * CC, 12 * n)).astype(np.float32) * 3000
+    h = rng.standard_normal((K * CC, 1026)).astype(np.float32) * 3000
+    return [torch.from_numpy(x).to(dev), torch.from_numpy(h).to(dev),
+            T0, T1, g0, g1, fade]
+
+
 def compare_comb(comb, args, label, tol=1e-5):
-    y_k, h_k = comb.comb_filter_cuda(*args)
+    """The kernel against its plain version on one set of inputs, and
+    the steps its chains took against the plain step plan. Returns (abs
+    err, rel err, steps per row as the kernel counted them)."""
+    taken = torch.zeros(args[0].shape[0], dtype=torch.int64,
+                        device=args[0].device)
+    y_k, h_k = comb.comb_filter_cuda(*args, step_counts=taken)
     y_r, h_r = comb.comb_filter_stream_ref(*args)
     torch.cuda.synchronize()
     ae, re = rel_err(y_k, y_r)
@@ -243,22 +388,31 @@ def compare_comb(comb, args, label, tol=1e-5):
     check(bool(torch.isfinite(y_k).all()), f"comb {label}: non-finite")
     check(re <= tol and hre <= tol,
           f"comb {label}: rel err {re:.3e} / hist {hre:.3e} > {tol}")
-    log(f"  comb {label}: max|d| {ae:.3e}, max|d|/max|ref| {re:.3e}")
-    return ae, re
+    plan = np.array([len(p) for p in comb.comb_step_plan(
+        *(a.cpu() for a in args[2:6]))])
+    taken = taken.cpu().numpy()
+    check(np.array_equal(taken, plan),
+          f"comb {label}: the kernel took {taken.tolist()} steps, the "
+          f"plain plan has {plan.tolist()}")
+    log(f"  comb {label}: max|d| {ae:.3e}, max|d|/max|ref| {re:.3e}; "
+        f"{int(taken.sum())} steps as planned, mean width "
+        f"{args[2].numel() / taken.sum():.3f} chunks")
+    return ae, re, taken
 
 
-def rot_work(W: int, R: int, ops_done: int):
-    """(bytes, flops) the rotation needs: x and the three dense marker
-    planes (pk, theta, gain) read once, y written once; six float ops
-    per Givens step these markers need plus one gain product per
-    value."""
-    return 4 * 5 * W * R, 6 * ops_done + W * R
+def rot_work(W: int, nmax: int, R: int, markers: int, ops_done: int):
+    """(bytes, flops) the rotation needs: x [R, nmax] read once and y
+    [R, nmax] written once (the columns past W pass through), the marker
+    plane pk [R, W] read once, theta and gain (4 bytes each) read at the
+    markers only; six float ops per Givens step these markers need plus
+    one gain product per value."""
+    return 4 * (2 * nmax + W) * R + 8 * markers, 6 * ops_done + W * R
 
 
 def random_rot_args(R, seed, dev):
-    """A seeded position-major plane [800, R] with its dense marker
-    planes: per row and band a rotating leaf, a plain leaf, a leaf that
-    ends at half the band, or nothing. Eight sigma classes."""
+    """A seeded row-major plane [R, 800] with its dense marker planes:
+    per row and band a rotating leaf, a plain leaf, a leaf that ends at
+    half the band, or nothing. Eight sigma classes."""
     from libnyquist_torch.formats.opus.celt_tables import mode48000
     from libnyquist_torch.ops.celt_replay import _sigma2_of
 
@@ -284,8 +438,45 @@ def random_rot_args(R, seed, dev):
             -1)
         th[col] = np.where(rotating, rng.uniform(0.02, 0.5, R), 0.0)
         g[col] = np.where(kind > 0, rng.uniform(0.05, 1.0, R), 0.0)
-    planes = [torch.from_numpy(a).to(dev) for a in (x, pk, th, g)]
+    planes = [torch.from_numpy(np.ascontiguousarray(a.T)).to(dev)
+              for a in (x, pk, th, g)]
     return planes + [tuple(sorted(sigmas)), band_off]
+
+
+def edge_rot_args(dev, copies=25, tail=160):
+    """Row-major planes [4 * copies, 800 + tail] of edge cases: markers
+    whose sub-segment a later marker cuts short (one of them rotating), a
+    zero-length sub-segment, one that runs past the last position, a
+    marker in the last column, sub-segments of 2 and 3 values, and a row
+    with no marker. The row count is no multiple of the kernel's rows
+    per block, and x is wider than the marker planes."""
+    from libnyquist_torch.formats.opus.celt_tables import mode48000
+
+    mode = mode48000()
+    band_off = [8 * int(e) for e in mode.eBands[: mode.nbEBands + 1]]
+    W = band_off[-1]
+    rng = np.random.default_rng(5)
+    x = rng.integers(-4, 5, (4, W + tail)).astype(np.float32)
+    pk = np.full((4, W), -1, np.int32)
+    th = np.zeros((4, W), np.float32)
+    g = np.zeros((4, W), np.float32)
+
+    def mark(r, col, ln, lag, theta, gain):
+        pk[r, col] = (col << 13) | (ln << 4) | lag
+        th[r, col], g[r, col] = theta, gain
+
+    mark(0, 0, 32, 1 + 3, 0.31, 0.5)        # cut short at column 20
+    mark(0, 20, 16, 1, 0.0, 0.25)
+    mark(0, 36, 0, 1 + 3, 0.2, 9.0)         # zero length
+    mark(0, 200, 24, 1 + 4, 0.12, 0.75)     # cut short by a rotating one
+    mark(0, 212, 48, 1 + 4, 0.4, 0.6)
+    mark(1, 700, 176, 1 + 9, 0.27, 0.8)     # runs past W
+    mark(2, W - 1, 8, 1, 0.3, 0.5)          # last column
+    mark(2, 100, 3, 1, 0.45, 2.0)
+    mark(2, 110, 2, 1, 0.45, 2.0)
+    planes = [torch.from_numpy(np.tile(a, (copies, 1))).to(dev)
+              for a in (x, pk, th, g)]
+    return planes + [(3, 4, 9), band_off]
 
 
 def rot_steps(pk, th):
@@ -301,21 +492,30 @@ def rot_steps(pk, th):
     return int((lag1 + lag_s).sum().item())
 
 
-def compare_rot(rot, args, label, tol=1e-5):
-    """The kernel against its plain version on one set of planes.
-    Returns (abs err, rel err, plain ms of that one run)."""
-    y_k = rot.rotate_plane_cuda(*args)
+def compare_rot(rot, args, label, tol=1e-5, must_move=True):
+    """The kernel, through its row-major entry, against the plain
+    (position-major) version on one set of planes; the columns past the
+    marker planes must come back as they went in. Returns (abs err, rel
+    err, plain ms of that one run)."""
+    x, pk, th, g, sigmas, band_off = args
+    W = pk.shape[1]
+    y_k = rot.rotate_plane(*args)
+    ref_in = [t.t().contiguous() for t in (x[:, :W], pk, th, g)]
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
-    y_r = rot.rotate_plane_ref(*args)
+    y_r = rot.rotate_plane_ref(*ref_in, sigmas, band_off)
     b.record()
     torch.cuda.synchronize()
-    ae, re = rel_err(y_k, y_r)
+    ae, re = rel_err(y_k[:, :W], y_r.t())
+    check(tuple(y_k.shape) == tuple(x.shape), f"rot {label}: output shape")
     check(bool(torch.isfinite(y_k).all()), f"rot {label}: non-finite")
-    moved = (y_r - args[0]).abs().max().item()
-    check(moved > 0, f"rot {label}: the plain version changed nothing")
+    check(bool(torch.equal(y_k[:, W:], x[:, W:])),
+          f"rot {label}: the columns past W changed")
+    moved = (y_r.t() - x[:, :W]).abs().max().item()
+    check(moved > 0 or not must_move,
+          f"rot {label}: the plain version changed nothing")
     check(re <= tol, f"rot {label}: rel err {re:.3e} > {tol}")
     log(f"  rot {label}: max|d| {ae:.3e}, max|d|/max|ref| {re:.3e}")
     return ae, re, a.elapsed_time(b)
@@ -344,23 +544,114 @@ def capture_rotation_inputs(trace, dev):
     return list(kept["args"])
 
 
-def phase1_kernels(comb, rot, trace0, dev):
+def round_trip(probe, dev, threads, iters=2_000_000):
+    """(cycles of one shared-memory round trip of a block of `threads`
+    threads, SM clock in MHz while the probe ran): the probe's own cycle
+    count over its CUDA-event time."""
+    out = torch.zeros(2, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run(n):
+        rc = probe(out.data_ptr(), n, threads, stream)
+        check(rc == 0, f"round trip probe launch failed: CUDA error {rc}")
+
+    run(1000)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    run(iters)
+    b.record()
+    b.synchronize()
+    cycles = out[0].item()
+    return cycles / iters, cycles / (a.elapsed_time(b) * 1e3)
+
+
+def check_sigma_first_columns(rot, pk, th, sigmas, band_off, label):
+    """The one place where the kernel and the plain version part: the
+    plain version starts a sigma class's sweeps at the first column the
+    class can occur in (the first band wide enough for it), the kernel
+    does not look. On these markers they are the same function only if
+    no rotating marker lies before its class's first column."""
+    m = (pk >= 0) & (th > 0)
+    col = torch.arange(pk.shape[1], device=pk.device).expand_as(pk)[m]
+    sg = (pk[m] & 15) - 1
+    for s in sigmas:
+        lo = rot._sigma_lo_col(s, band_off)
+        sel = sg == s
+        check(not bool(sel.any()) or int(col[sel].min()) >= lo,
+              f"rot {label}: a marker of sigma class {s} rotates before "
+              f"column {lo}")
+    check(bool(torch.isin(sg[sg > 0], torch.tensor(
+        list(sigmas), device=pk.device)).all()),
+        f"rot {label}: a rotating marker outside the classes {sigmas}")
+
+
+def phase1_kernels(comb, rot, probe, trace0, synth, dev):
     log("phase 1: kernels against their plain versions on the card")
+    K, CC = K_STREAMS, 2
     for B, n in ((4, 140), (8, 257)):       # the reference kernel test
         compare_comb(comb, random_comb_args(B, n, B * 1000 + n, dev, False),
                      f"B={B} n={n}")
+    # a row count that is not 16, a ragged last tile
+    compare_comb(comb, random_comb_args(5, 1000, 77, dev, True),
+                 "B=5 n=1000 random")
+    n_small = 4096
+    args = random_comb_args(16, n_small, 15, dev, True)
+    args[2].fill_(15)
+    args[3].fill_(15)
+    _, _, taken = compare_comb(comb, args, f"B=16 n={n_small} every lag 15")
+    check(int(taken.min()) == n_small, "lag 15 must force one-chunk steps")
+    args = random_comb_args(16, n_small, 16, dev, True)
+    args[4].zero_()
+    args[5].zero_()
+    compare_comb(comb, args, f"B=16 n={n_small} all gains zero")
+    check(bool(torch.equal(comb.comb_filter_cuda(*args)[0], args[0])),
+          "all gains zero must give y = x")
+    args = real_table_comb_args(synth, 1, K, CC, n_small, 17, dev)
+    compare_comb(comb, args, f"B={K * CC} n={n_small} real per-frame tables")
+
     B, n = COMB_SERVE_SHAPE
+    rt_cycles, sm_mhz = round_trip(probe, dev, COMB_THREADS)
+    warp_cycles, _ = round_trip(probe, dev, 32)
+    log(f"  shared-memory round trip of a block of {COMB_THREADS} threads, "
+        f"as the comb kernel's (store, __syncthreads, load from another "
+        f"warp, add): {rt_cycles:.1f} cycles at {sm_mhz:.0f} MHz; of one "
+        f"warp {warp_cycles:.1f} cycles")
+
+    def chain_ms(steps):          # the slowest row's chain, one trip a step
+        return int(steps.max()) * rt_cycles / (sm_mhz * 1e3)
+
     args = random_comb_args(B, n, 2024, dev, True)
-    ae, re = compare_comb(comb, args, f"serving shape B={B} n={n} random")
+    ae, re, taken = compare_comb(comb, args,
+                                 f"serving shape B={B} n={n} random")
     k_ms = cuda_ms(lambda: comb.comb_filter_cuda(*args), reps=7)
-    p_ms = cuda_ms(lambda: comb.comb_filter_stream_ref(*args), reps=3,
-                   warmup=0)
+    p_ms = cuda_ms(lambda: comb.comb_filter_stream_ref(*args), reps=1,
+                   warmup=0)          # one run: the comparison warmed it up
+    # the same work in steps of one chunk: every lag 15
+    args[2].fill_(15)
+    args[3].fill_(15)
+    k1_ms = cuda_ms(lambda: comb.comb_filter_cuda(*args), reps=5)
+    del args
+    real = real_table_comb_args(synth, 1, K, CC, n, 18, dev)
+    taken_real = torch.zeros(B, dtype=torch.int64, device=dev)
+    comb.comb_filter_cuda(*real, step_counts=taken_real)
+    taken_real = taken_real.cpu().numpy()
+    kr_ms = cuda_ms(lambda: comb.comb_filter_cuda(*real), reps=7)
+    del real
     nbytes, flops = comb_work(B, n)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS * 1e3
-    log(f"  comb serving shape: kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms, "
-        f"bound {max(t_bytes, t_ops):.4f} ms ({nbytes / 1e6:.1f} MB, "
-        f"{flops / 1e9:.3f} GFLOP)")
+    log(f"  comb serving shape, random inputs: kernel {k_ms:.3f} ms "
+        f"({int(taken.max())} steps in the slowest row, chain bound "
+        f"{chain_ms(taken):.3f} ms), with every lag 15 (steps of one chunk) "
+        f"{k1_ms:.3f} ms (chain bound "
+        f"{n * rt_cycles / (sm_mhz * 1e3):.3f} ms), plain "
+        f"{p_ms:.1f} ms, byte bound {max(t_bytes, t_ops):.4f} ms "
+        f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
+    log(f"  comb serving shape, real per-frame tables: kernel {kr_ms:.3f} "
+        f"ms ({int(taken_real.max())} steps in the slowest row, mean width "
+        f"{B * n / taken_real.sum():.3f} chunks, chain bound "
+        f"{chain_ms(taken_real):.3f} ms)")
     comb_row = {
         "name": "comb_filter",
         "route": "cuda",
@@ -376,27 +667,49 @@ def phase1_kernels(comb, rot, trace0, dev):
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,
         "shape": {"B": B, "n_chunks": n},
+        "chain_bound_ms": chain_ms(taken),
+        "ms_one_chunk_steps": k1_ms,
+        "ms_real_tables": kr_ms,
+        "chain_bound_real_tables_ms": chain_ms(taken_real),
+        "slowest_row_steps": int(taken.max()),
+        "slowest_row_steps_real_tables": int(taken_real.max()),
+        "round_trip_cycles": rt_cycles,
+        "round_trip_cycles_one_warp": warp_cycles,
+        "sm_clock_mhz": sm_mhz,
     }
-    del args
 
     rargs = random_rot_args(300, 7, dev)
     check(len(rargs[4]) >= 3, "seeded plane needs several sigma classes")
-    compare_rot(rot, rargs, f"W=800 R=300 seeded, sigmas {rargs[4]}")
+    compare_rot(rot, rargs, f"R=300 W=800 seeded, sigmas {rargs[4]}")
+    rargs = edge_rot_args(dev)
+    compare_rot(rot, rargs, f"R={rargs[0].shape[0]} cut-short, zero-length "
+                f"and overlong sub-segments, rows without a marker, "
+                f"nmax={rargs[0].shape[1]}")
+    x, pk = rargs[0], rargs[1]
+    y = rot.rotate_plane(*rargs)
+    torch.cuda.synchronize()
+    check(bool((pk[3] < 0).all()) and bool(torch.equal(y[3::4], x[3::4])),
+          "rows without a marker must pass through")
     rargs = capture_rotation_inputs(trace0, dev)
-    W, R = rargs[0].shape
-    check((W, R) == ROT_SERVE_SHAPE, f"rotation plane is {(W, R)}")
+    R, W = rargs[1].shape
+    nmax = rargs[0].shape[1]
+    check((R, W) == ROT_SERVE_SHAPE, f"rotation marker plane is {(R, W)}")
+    check_sigma_first_columns(rot, rargs[1], rargs[2], rargs[4], rargs[5],
+                              "real markers")
     ae, re, p_ms = compare_rot(
-        rot, rargs, f"serving shape W={W} R={R} real markers, sigmas "
-        f"{tuple(rargs[4])}")
+        rot, rargs, f"serving shape R={R} W={W} nmax={nmax} real markers, "
+        f"sigmas {tuple(rargs[4])}")
     k_ms = cuda_ms(lambda: rot.rotate_plane_cuda(*rargs), reps=7)
     steps = rot_steps(rargs[1], rargs[2])
-    nbytes, flops = rot_work(W, R, steps)
+    markers = int((rargs[1] >= 0).sum().item())
+    nbytes, flops = rot_work(W, nmax, R, markers, steps)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS * 1e3
     log(f"  rot serving shape: kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms "
         f"(one run, all rows), bound {max(t_bytes, t_ops):.4f} ms "
-        f"({nbytes / 1e6:.1f} MB: x, pk, theta, gain planes in and y out; "
-        f"{steps / 1e6:.2f} M Givens steps, {flops / 1e9:.3f} GFLOP)")
+        f"({nbytes / 1e6:.1f} MB: x [R, {nmax}] in, y out, pk [R, {W}] in, "
+        f"theta and gain at {markers} markers; {steps / 1e6:.2f} M Givens "
+        f"steps, {flops / 1e9:.3f} GFLOP)")
     rot_row = {
         "name": "rotate_plane",
         "route": "cuda",
@@ -411,7 +724,9 @@ def phase1_kernels(comb, rot, trace0, dev):
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,
-        "shape": {"W": W, "R": R, "sigmas": list(rargs[4])},
+        "shape": {"R": R, "W": W, "nmax": nmax, "sigmas": list(rargs[4])},
+        "markers": markers,
+        "bound_bytes": nbytes,
     }
     return comb_row, rot_row
 
@@ -507,15 +822,13 @@ def replay_stage_split(streams_dev):
 
 
 def phase3_serving(comb, rot, serving, dev, rows, card, traces, decodes,
-                   host):
+                   host, synth):
     from libnyquist_torch.ops import celt_replay
 
     log(f"phase 3: serving K={K_STREAMS} stereo streams x {SERVE_FRAMES} "
         f"frames from their host traces (main path)")
     K, CC, F, N = K_STREAMS, 2, SERVE_FRAMES, 960
     n_steps = -(-F // F_CHUNK)
-    synth = serving.synth_from_numpy(serving.synth_tables(
-        [d[1:] for d in decodes], N, n_steps, F_CHUNK), dev)
     t0 = time.perf_counter()
     streams_dev = [(celt_replay.replay_arrays_from_numpy(arrs, dev), key)
                    for _, arrs, key in traces]
@@ -578,9 +891,12 @@ def phase3_serving(comb, rot, serving, dev, rows, card, traces, decodes,
     dev_s = ev0.elapsed_time(ev1) / 1e3
     launches = {"comb_filter": comb.comb_filter_cuda.launches,
                 "rotate_plane": rot.rotate_plane_cuda.launches}
+    expected = {"comb_filter": n_steps, "rotate_plane": K}
     for row in rows:
-        check(launches[row["name"]] > 0,
-              f"the main path launched no {row['name']} kernel")
+        check(launches[row["name"]] == expected[row["name"]],
+              f"the main path launched the {row['name']} kernel "
+              f"{launches[row['name']]} times, expected "
+              f"{expected[row['name']]}")
         row["launches"] = launches[row["name"]]
     check(tuple(acc.shape) == (K, CC) and bool(torch.isfinite(acc).all()),
           "acc shape / finiteness")
@@ -683,14 +999,20 @@ def main() -> int:
 
     dev = resolve_device("cuda")
     t_start = time.perf_counter()
-    card = phase0_build(native, kernels)
+    card, probe = phase0_build(native, kernels)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     traces, decodes, host = host_batch(card)
-    rows = phase1_kernels(comb, rot, traces[0], dev)
+    n_steps = -(-SERVE_FRAMES // F_CHUNK)
+    synth_np = serving.synth_tables([d[1:] for d in decodes], 960, n_steps,
+                                    F_CHUNK)
+    host["comb_tables"] = comb_table_stats(synth_np, K_STREAMS, n_steps)
+    host["rot_markers"] = rot_marker_stats(traces)
+    synth = serving.synth_from_numpy(synth_np, dev)
+    rows = phase1_kernels(comb, rot, probe, traces[0], synth, dev)
     phase2_load(nqt, comb, dev)
     serve = phase3_serving(comb, rot, serving, dev, rows, card, traces,
-                           decodes, host)
+                           decodes, host, synth)
     log(json.dumps({"serving": serve, "card": card}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -2,163 +2,208 @@
  * the whole raw-iy leaf plane, as a CUDA kernel for Hopper (sm_90a).
  *
  * Replaces the reference package's Pallas TPU kernel _rot_kernel
- * (ops/rot_pallas.py, wrapper rotate_plane_pallas). Same math as the
- * plain version rotate_plane_ref in ops/rot.py, in four steps:
+ * (ops/rot_pallas.py, wrapper rotate_plane_pallas). Same function as the
+ * plain version rotate_plane_ref in ops/rot.py; the algorithm is the one
+ * rotate_rows_segments_ref states in plain PyTorch.
  *
- *   1. fill the sparse sub-segment markers (pk / theta / gain) forward
- *      along the position axis;
- *   2. per position: validity (inside its marker's sub-segment), the
- *      segment key, the lag class, cos/sin(pi/2 * theta), the gain;
- *   3. per sigma class, from its first possible column `lo`: the forward
- *      and the backward Givens sweep of exp_rotation1 at stride sigma
- *      with swapped coefficients (vq.c:100), then both sweeps at lag 1;
- *      a step acts only where both ends lie in one sub-segment;
- *   4. the per-leaf gain.
- *
- * Planes are position-major [W, R]: W positions (800 for 20 ms frames),
- * R = channel * frames + frame rows. pk packs, per marker,
+ * Planes are row-major, as the replay's heap scatter builds them: rows
+ * c * F + f, positions along the fast axis. x is [R, nmax] with a row
+ * stride; the marker planes pk / th / g are [R, W] (W = 100 << LM band
+ * positions, W <= nmax). pk packs, per marker,
  * column << 13 | sub-segment length << 4 | lag, lag = 1 + sigma for a
- * rotating sub-segment and 1 otherwise; -1 means no marker.
+ * rotating sub-segment and 1 otherwise; -1 means no marker. y is a full
+ * [R, nmax] plane: columns W .. nmax pass through.
  *
- * Design. The TPU kernel holds a [W, 128] strip in on-chip memory and
- * advances one sublane per step because its vector unit cannot index per
- * lane; none of that carries over. Every sweep is a recurrence along
- * position with a data-dependent predicate per step, and the rows are
- * independent, so one thread owns one row and walks the positions in
- * order. With the planes position-major the 32 rows of a warp read 32
- * adjacent floats at each position, so every access coalesces. The
- * per-row working state (segment key, cos, sin, gain: four values per
- * position) does not fit in registers at W = 800; it lives in global
- * scratch planes of the same layout, which the wrapper allocates. The
- * sweeps run in place on y. A step whose predicate is false touches
- * only the two keys. The lag class is recomputed from the key (its low
- * four bits) instead of being stored.
+ * What the function really is: every marker opens one sub-segment, and
+ * every sub-segment is an independent small problem. Its positions run
+ * from the marker to the next marker of the row (a later marker cuts an
+ * earlier sub-segment short), to the marker's own column + length, or to
+ * W, whichever comes first. On it: exp_rotation1 at stride sigma with
+ * swapped coefficients (vq.c:100), exp_rotation1 at stride 1, then the
+ * leaf's gain. Positions in no sub-segment pass through unscaled.
  *
- * What bounds it on an H100: bytes, in principle. The function must read
- * x and the three marker planes and write y once: 5 * W * R * 4 bytes
- * (355 MB for one stream of 22,200 rows, about 0.11 ms at 3.35 TB/s).
- * This kernel moves far more: each of the 2 * (classes + 1) sweeps
- * streams the key, coefficient and value planes again, and each step of
- * a row's chain waits for the loads of the step before it, so it is
- * latency-bound with one thread per row (22,200 threads on a card that
- * holds 270,336). Staging a block of rows in shared memory and splitting
- * a sweep across lanes is work for a later change.
+ * Design: a warp per row, a lane per sub-segment, the row in shared
+ * memory.
+ *   1. The warp copies the row's W values into shared memory with 16-byte
+ *      loads and streams columns W .. nmax straight to y.
+ *   2. It reads the row of pk with 16-byte loads and compacts the marker
+ *      positions, in order, into a 16-bit list in shared memory (four
+ *      ballots and prefix counts per 128 positions).
+ *   3. Markers are dealt to lanes round-robin. A lane fetches its
+ *      marker's pk, theta and gain (theta and gain are read only at
+ *      markers, so most of their planes never leaves device memory),
+ *      takes cosf / sinf once, and runs the sweeps of its sub-segment on
+ *      the shared row in exp_rotation1's scalar order. The lag-1 sweeps
+ *      carry the running value in a register, so each step is one load,
+ *      one store and four multiply-adds, in the order of the plain
+ *      version.
+ *   4. The warp writes the row back with 16-byte stores.
+ * No global scratch, and no transposes around the call: the working
+ * state of a sub-segment is a handful of registers.
+ *
+ * Why round-robin and no finer split: on a real stream (22,200 rows) a
+ * row has 45 markers on average and 119 at most, the longest rotating
+ * sub-segment has 88 values (322 Givens steps), and the slowest lane of
+ * a row has about 106 steps and gain products against 23 for a perfect
+ * split. That is a few microseconds a row with some forty rows resident
+ * on each SM, below the time the row's bytes take; splitting a stride-
+ * sigma sweep over sigma lanes would buy nothing that shows.
+ *
+ * What bounds it on an H100: bytes. x in and y out ([R, nmax] each) and
+ * the pk plane are read or written once; theta and gain only in the
+ * 32-byte sectors that hold a marker. The bound the records use counts
+ * just that: (2 * nmax + W) * R * 4 bytes plus 8 bytes (theta and gain)
+ * per marker, about 250 MB for a stream of 22,200 rows of 960 values
+ * with a million markers, 0.075 ms at 3.35 TB/s.
  */
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define MAX_CLASSES 16
-#define ROT_THREADS 128
+#define ROT_WARPS 8
 
-struct RotClasses {
-    int n;                     /* sigma classes, then the lag-1 class */
-    int sigma[MAX_CLASSES];
-    int lo[MAX_CLASSES];
-};
-
-/* lag class of a filled key: low four bits of a valid marker, 0 for a
- * position outside every sub-segment (those keys are negative) */
-__device__ __forceinline__ int lag_of(int key)
+/* One Givens step of exp_rotation1 on shared memory. */
+__device__ __forceinline__ void givens(float *s, int i, int d, float c,
+                                       float sn)
 {
-    return key >= 0 ? (key & 15) : 0;
+    const float x1 = s[i], x2 = s[i + d];
+    s[i + d] = c * x2 + sn * x1;
+    s[i] = c * x1 - sn * x2;
 }
 
-__global__ void __launch_bounds__(ROT_THREADS)
-rot_kernel(const float *__restrict__ x, const int *__restrict__ pk,
-           const float *__restrict__ th, const float *__restrict__ g,
-           float *__restrict__ y, int *__restrict__ key,
-           float *__restrict__ cs, float *__restrict__ sn,
-           float *__restrict__ gm, int W, long long R, RotClasses cls)
+__global__ void __launch_bounds__(ROT_WARPS * 32)
+rot_rows_kernel(const float *__restrict__ x, long long x_stride,
+                const int *__restrict__ pk, const float *__restrict__ th,
+                const float *__restrict__ g, float *__restrict__ y,
+                int W, int nmax, long long R, unsigned sigma_mask,
+                int warp_bytes)
 {
-    const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    extern __shared__ __align__(16) unsigned char rot_smem[];
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const long long r = (long long)blockIdx.x * ROT_WARPS + warp;
     if (r >= R)
-        return;
+        return;               /* whole warps only; no block barrier below */
+    float *v = reinterpret_cast<float *>(rot_smem + (size_t)warp * warp_bytes);
+    unsigned short *mpos = reinterpret_cast<unsigned short *>(v + W);
+    const unsigned lt = (1u << lane) - 1u;
+
+    const float4 *x4 = reinterpret_cast<const float4 *>(x + r * x_stride);
+    float4 *y4 = reinterpret_cast<float4 *>(y + r * (long long)nmax);
+    const int W4 = W >> 2, N4 = nmax >> 2;
+
+    /* 1: the row into shared memory, the tail straight through */
+    for (int i = lane; i < W4; i += 32)
+        reinterpret_cast<float4 *>(v)[i] = x4[i];
+    for (int i = W4 + lane; i < N4; i += 32)
+        y4[i] = x4[i];
+
+    /* 2: compact the marker positions, in position order */
+    const int *pkr = pk + r * (long long)W;
+    const int4 *pk4 = reinterpret_cast<const int4 *>(pkr);
+    int M = 0;
+    for (int base = 0; base < W; base += 128) {
+        const int p = base + 4 * lane;
+        int4 q = make_int4(-1, -1, -1, -1);
+        if (p < W)
+            q = pk4[p >> 2];
+        const unsigned b0 = __ballot_sync(0xffffffffu, q.x >= 0);
+        const unsigned b1 = __ballot_sync(0xffffffffu, q.y >= 0);
+        const unsigned b2 = __ballot_sync(0xffffffffu, q.z >= 0);
+        const unsigned b3 = __ballot_sync(0xffffffffu, q.w >= 0);
+        int o = M + __popc(b0 & lt) + __popc(b1 & lt) + __popc(b2 & lt)
+            + __popc(b3 & lt);
+        if (q.x >= 0) mpos[o++] = (unsigned short)p;
+        if (q.y >= 0) mpos[o++] = (unsigned short)(p + 1);
+        if (q.z >= 0) mpos[o++] = (unsigned short)(p + 2);
+        if (q.w >= 0) mpos[o++] = (unsigned short)(p + 3);
+        M += __popc(b0) + __popc(b1) + __popc(b2) + __popc(b3);
+    }
+    __syncwarp();
+
+    /* 3: a lane per sub-segment */
     const float half_pi = 1.57079632679489661923f;
-
-    /* 1 + 2: fill forward, derive the per-position planes */
-    int kf = -1;
-    float tf = 0.0f, gf = 0.0f;
-    for (int i = 0; i < W; ++i) {
-        const long long o = (long long)i * R + r;
-        const int p = pk[o];
-        if (p >= 0) {
-            kf = p;
-            tf = th[o];
-            gf = g[o];
+    const float *thr = th + r * (long long)W;
+    const float *gr = g + r * (long long)W;
+    for (int m = lane; m < M; m += 32) {
+        const int p = mpos[m];
+        const int nxt = (m + 1 < M) ? (int)mpos[m + 1] : W;
+        const int key = pkr[p];
+        const float tf = thr[p], gf = gr[p];
+        /* valid positions: p <= i < nxt with i - column < length */
+        const int L = min(max((key >> 13) + ((key >> 4) & 0x1FF) - p, 0),
+                          nxt - p);
+        if (L <= 0)
+            continue;
+        float *s = v + p;
+        const int lag = key & 15;
+        const bool on = tf > 0.0f;
+        const float cs = on ? cosf(half_pi * tf) : 1.0f;
+        const float sn = on ? sinf(half_pi * tf) : 0.0f;
+        const int sg = lag - 1;
+        if (sg >= 2 && ((sigma_mask >> sg) & 1u)) {
+            /* stride sigma, coefficients swapped */
+            for (int i = 0; i < L - sg; ++i)
+                givens(s, i, sg, sn, cs);
+            for (int i = L - 2 * sg - 1; i >= 0; --i)
+                givens(s, i, sg, sn, cs);
         }
-        const bool valid = kf >= 0 && (i - (kf >> 13)) < ((kf >> 4) & 0x1FF);
-        const bool on = valid && tf > 0.0f;
-        key[o] = valid ? kf : -1 - i;
-        cs[o] = on ? cosf(half_pi * tf) : 1.0f;
-        sn[o] = on ? sinf(half_pi * tf) : 0.0f;
-        gm[o] = valid ? gf : 1.0f;
-        y[o] = x[o];
-    }
-
-    /* 3: the sweeps, in exp_rotation1's scalar order */
-    for (int c = 0; c < cls.n; ++c) {
-        const int sg = cls.sigma[c];
-        const int lo = cls.lo[c];
-        const bool last = c == cls.n - 1;          /* the lag-1 class */
-        const long long d = (long long)sg * R;
-
-        for (int i = lo; i < W - sg; ++i) {
-            const long long o = (long long)i * R + r;
-            const int k1 = key[o];
-            const int lg = lag_of(k1);
-            if (k1 == key[o + d] && (last ? lg > 0 : lg == 1 + sg)) {
-                const float cc = last ? cs[o] : sn[o];
-                const float ss = last ? sn[o] : cs[o];
-                const float x1 = y[o], x2 = y[o + d];
-                y[o + d] = cc * x2 + ss * x1;
-                y[o] = cc * x1 - ss * x2;
+        if (lag > 0 && on) {
+            /* lag 1, forward then backward, the running value carried */
+            float cur = s[0];
+            for (int i = 0; i < L - 1; ++i) {
+                const float x2 = s[i + 1];
+                s[i] = cs * cur - sn * x2;
+                cur = cs * x2 + sn * cur;
+            }
+            s[L - 1] = cur;
+            if (L >= 3) {
+                cur = s[L - 2];
+                for (int i = L - 3; i >= 0; --i) {
+                    const float x1 = s[i];
+                    s[i + 1] = cs * cur + sn * x1;
+                    cur = cs * x1 - sn * cur;
+                }
+                s[0] = cur;
             }
         }
-        for (int i = W - 2 * sg - 1; i >= lo; --i) {
-            const long long o = (long long)i * R + r;
-            const int k1 = key[o];
-            const int lg = lag_of(k1);
-            if (k1 == key[o + 2 * d] && (last ? lg > 0 : lg == 1 + sg)) {
-                const float cc = last ? cs[o] : sn[o];
-                const float ss = last ? sn[o] : cs[o];
-                const float x1 = y[o], x2 = y[o + d];
-                y[o + d] = cc * x2 + ss * x1;
-                y[o] = cc * x1 - ss * x2;
-            }
-        }
+        for (int i = 0; i < L; ++i)
+            s[i] *= gf;
     }
+    __syncwarp();
 
-    /* 4: per-leaf gain */
-    for (int i = 0; i < W; ++i) {
-        const long long o = (long long)i * R + r;
-        y[o] *= gm[o];
-    }
+    /* 4: the row back */
+    for (int i = lane; i < W4; i += 32)
+        y4[i] = reinterpret_cast<const float4 *>(v)[i];
 }
 
 /* Launch on `stream`; returns cudaGetLastError() (0 on success), or
- * cudaErrorInvalidValue for more than MAX_CLASSES - 1 sigma classes.
- * x, th, g, y, cs, sn, gm are device float [W, R]; pk, key device int32
- * [W, R]; key, cs, sn, gm are scratch. sigmas / los are HOST arrays of
- * n_sigma entries: the sigma classes and the first column of each. The
- * lag-1 class is appended here. */
+ * cudaErrorInvalidValue for a shape the kernel does not take. x is a
+ * device float [R, nmax] plane whose rows lie x_stride floats apart; pk
+ * (int32), th and g (float) are contiguous device [R, W]; y is a
+ * contiguous device float [R, nmax]. W, nmax and x_stride are multiples
+ * of 4 and x, pk and y are 16-byte aligned. sigma_mask has bit s set
+ * for each sigma class s in 2..15 that rotates at its stride. */
 extern "C" int rotate_plane_launch(
-    const float *x, const int *pk, const float *th, const float *g,
-    float *y, int *key, float *cs, float *sn, float *gm,
-    int W, long long R, const int *sigmas, const int *los, int n_sigma,
-    void *stream)
+    const float *x, long long x_stride, const int *pk, const float *th,
+    const float *g, float *y, int W, int nmax, long long R,
+    unsigned sigma_mask, void *stream)
 {
-    RotClasses cls;
-    if (n_sigma < 0 || n_sigma > MAX_CLASSES - 1)
+    if (W <= 0 || (W & 3) || (nmax & 3) || (x_stride & 3) || W > nmax
+        || W > 4096 || x_stride < nmax || R <= 0)
         return (int)cudaErrorInvalidValue;
-    for (int c = 0; c < n_sigma; ++c) {
-        cls.sigma[c] = sigmas[c];
-        cls.lo[c] = los[c];
+    /* per warp: W floats, then W 16-bit marker positions, to 16 bytes */
+    const int warp_bytes = (6 * W + 15) & ~15;
+    const int smem = ROT_WARPS * warp_bytes;
+    if (smem > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(
+            rot_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            smem);
+        if (e != cudaSuccess)
+            return (int)e;
     }
-    cls.sigma[n_sigma] = 1;
-    cls.lo[n_sigma] = 0;
-    cls.n = n_sigma + 1;
-    const long long blocks = (R + ROT_THREADS - 1) / ROT_THREADS;
-    rot_kernel<<<(unsigned)blocks, ROT_THREADS, 0, (cudaStream_t)stream>>>(
-        x, pk, th, g, y, key, cs, sn, gm, W, R, cls);
+    const long long blocks = (R + ROT_WARPS - 1) / ROT_WARPS;
+    rot_rows_kernel<<<(unsigned)blocks, ROT_WARPS * 32, smem,
+                      (cudaStream_t)stream>>>(
+        x, x_stride, pk, th, g, y, W, nmax, R, sigma_mask, warp_bytes);
     return (int)cudaGetLastError();
 }

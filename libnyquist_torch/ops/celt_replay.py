@@ -615,9 +615,9 @@ def _deint_rows(stride):
 
 def _build_rotation_pass(rot_spec, band_off, F):
     """The device rotation + scale pass for raw-iy planes: scatter the
-    compact markers into dense position-major [WB, 2F] planes (what the
-    rotation takes) and run ops/rot.py rotate_plane over them. Padded
-    markers (row 2F) land in a dump slot past the plane."""
+    compact markers into dense row-major [2F, WB] planes, beside the
+    value plane as it stands, and run ops/rot.py rotate_plane over them.
+    Padded markers (row 2F) land in a dump slot past the plane."""
     WB, _nm_pad, sigmas = rot_spec
     F2 = F * 2
     band_off_t = tuple(int(v) for v in band_off)
@@ -625,20 +625,18 @@ def _build_rotation_pass(rot_spec, band_off, F):
     def rotate(x, arrs, g_override=None):
         """x: the channel-major [2F, nmax] raw plane (row c*F + f)."""
         gv = arrs["rot_g"] if g_override is None else g_override
-        xh = x[:, :WB].t().contiguous()                    # [WB, F2]
         rows = arrs["rot_rows"]
-        idx = torch.where(rows >= F2, F2 * WB, arrs["rot_cols"] * F2 + rows)
+        idx = torch.where(rows >= F2, F2 * WB, rows * WB + arrs["rot_cols"])
 
         def plane(fill, vals):
             flat = torch.full((F2 * WB + 1,), fill, dtype=vals.dtype,
                               device=vals.device)
             flat[idx] = vals
-            return flat[: F2 * WB].view(WB, F2)
+            return flat[: F2 * WB].view(F2, WB)
 
-        out = rot_ops.rotate_plane(
-            xh, plane(-1, arrs["rot_pk"]), plane(0.0, arrs["rot_th"]),
+        return rot_ops.rotate_plane(
+            x, plane(-1, arrs["rot_pk"]), plane(0.0, arrs["rot_th"]),
             plane(0.0, gv), sigmas, band_off_t)
-        return torch.cat([out.t(), x[:, WB:]], dim=1)
 
     return rotate
 

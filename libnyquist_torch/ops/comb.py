@@ -11,6 +11,14 @@ vectorized over the [stream * channel] batch axis.
 the plain PyTorch version ``comb_filter_stream_ref``; a CUDA tensor goes
 to the hand-written kernel (``csrc/comb.cu``) through
 ``comb_filter_cuda``, or the call raises.
+
+The kernel does not advance one chunk at a time: the only ordering rule
+is that a step may not read a sample it writes, so a step of m chunks is
+legal when every chunk in it that filters at all (its six gains are not
+all zero) has min(T0, T1) >= 12 m + 2. ``comb_step_widths`` and
+``comb_step_plan`` state the steps the kernel takes, and
+``comb_filter_planned_ref`` is the plain filter that follows such a plan
+step by step: the executable statement of the kernel's algorithm.
 """
 
 from __future__ import annotations
@@ -25,6 +33,8 @@ from .. import kernels
 CHUNK = 12
 MAXPERIOD = 1024
 HIST = MAXPERIOD + 2  # history needed before the first sample
+MAX_STEP = 10         # widest step the kernel takes, in chunks (120 samples)
+TILE = 256            # chunks per staged input tile; no step crosses one
 
 
 def build_chunk_params(frame_params, frame_size: int, window: np.ndarray,
@@ -117,6 +127,87 @@ def comb_filter_stream_ref(x, hist, T0, T1, gains0, gains1, fade):
     return buf[:, H:].contiguous(), buf[:, S:].contiguous()
 
 
+def comb_step_limits(T0, T1, gains0, gains1):
+    """[B, n] int: the widest step (in chunks, 1..MAX_STEP) each chunk
+    allows to a step that contains it. A chunk whose six gains are zero
+    reads no history (y = x) and allows MAX_STEP; any other allows
+    (min(T0, T1) - 2) // 12: a step of m chunks starting at sample s
+    writes s .. s + 12 m - 1 and the chunk's newest read is at most
+    s + 12 m - 1 - T + 2, which must stay below s."""
+    active = (gains0 != 0).any(dim=-1) | (gains1 != 0).any(dim=-1)
+    lim = torch.div(torch.minimum(T0, T1).long() - 2, CHUNK,
+                    rounding_mode="floor").clamp(1, MAX_STEP)
+    return torch.where(active, lim, torch.full_like(lim, MAX_STEP))
+
+
+def comb_step_widths(T0, T1, gains0, gains1):
+    """[B, n] int: the longest legal step that starts at each chunk, as
+    the kernel computes it per staged tile: the largest m <= MAX_STEP,
+    not past the end of the chunk's TILE nor of the row, such that every
+    chunk of the step allows m (comb_step_limits)."""
+    lim = comb_step_limits(T0, T1, gains0, gains1)
+    n = lim.shape[-1]
+    pos = torch.arange(n, device=lim.device)
+    room = torch.minimum(TILE - pos % TILE, n - pos)
+    padded = torch.nn.functional.pad(lim, (0, MAX_STEP), value=MAX_STEP)
+    run = lim
+    ok = torch.ones_like(lim, dtype=torch.bool)
+    width = torch.ones_like(lim)
+    for m in range(1, MAX_STEP + 1):
+        if m > 1:
+            run = torch.minimum(run, padded[..., m - 1 : m - 1 + n])
+        ok = ok & (run >= m) & (room >= m)
+        width = torch.where(ok, torch.full_like(width, m), width)
+    return width
+
+
+def comb_step_plan(T0, T1, gains0, gains1):
+    """The steps the kernel follows: per row a list of (first chunk, m),
+    walking the row by comb_step_widths."""
+    widths = comb_step_widths(T0, T1, gains0, gains1)
+    plans = []
+    for w in widths.tolist():
+        k, steps = 0, []
+        while k < len(w):
+            steps.append((k, w[k]))
+            k += w[k]
+        plans.append(steps)
+    return plans
+
+
+def comb_filter_planned_ref(x, hist, T0, T1, gains0, gains1, fade,
+                            plans=None):
+    """Plain PyTorch postfilter that follows a step plan (by default
+    comb_step_plan's): each step computes all its 12 m samples from the
+    buffer as it stood before the step, as the kernel's lanes do. A chunk
+    whose gains are all zero copies x. Same arguments and returns as
+    comb_filter_stream_ref; row by row, for small sizes."""
+    B, S = x.shape
+    H = hist.shape[1]
+    if plans is None:
+        plans = comb_step_plan(T0, T1, gains0, gains1)
+    active = (gains0 != 0).any(dim=-1) | (gains1 != 0).any(dim=-1)
+    buf = torch.cat([hist.float(), torch.zeros_like(x)], dim=1)
+    fade_s = fade.reshape(B, S)
+    for r, steps in enumerate(plans):
+        row = buf[r]
+        for k, m in steps:
+            j = torch.arange(CHUNK * k, CHUNK * (k + m), device=x.device)
+            c = j // CHUNK                               # chunk per sample
+            before = row.clone()
+
+            def taps(T, g):
+                p = H + j - T[r, c].long()
+                return (g[r, c, 0] * before[p]
+                        + g[r, c, 1] * (before[p - 1] + before[p + 1])
+                        + g[r, c, 2] * (before[p - 2] + before[p + 2]))
+
+            f = fade_s[r, j]
+            y = x[r, j] + (1.0 - f) * taps(T0, gains0) + f * taps(T1, gains1)
+            row[H + j] = torch.where(active[r, c], y, x[r, j])
+    return buf[:, H:].contiguous(), buf[:, S:].contiguous()
+
+
 _BOUND = False
 
 
@@ -128,7 +219,8 @@ def _comb_lib() -> ctypes.CDLL:
         L.comb_filter_launch.restype = ctypes.c_int
         L.comb_filter_launch.argtypes = [
             vp, vp, vp, vp, vp, vp, vp, vp,        # x hist T0 T1 g0 g1 fade y
-            ctypes.c_int, ctypes.c_longlong, vp,   # B, n_chunks, stream
+            ctypes.c_int, ctypes.c_longlong,       # B, n_chunks
+            ctypes.c_int, vp, vp,                  # vec, steps, stream
         ]
         _BOUND = True
     return L
@@ -148,12 +240,15 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"comb_filter_cuda: {name} is not contiguous")
 
 
-def comb_filter_cuda(x, hist, T0, T1, gains0, gains1, fade):
+def comb_filter_cuda(x, hist, T0, T1, gains0, gains1, fade, *,
+                     step_counts=None):
     """The postfilter on the card through the hand-written kernel.
 
     Same arguments as comb_filter_stream_ref, with hist exactly
     [B, HIST], lags int32 and every tensor contiguous on one CUDA
-    device. Counts its launches in ``comb_filter_cuda.launches``.
+    device. ``step_counts``, when given, is an int64 [B] tensor on the
+    device that receives the steps each row's chain took. Counts its
+    launches in ``comb_filter_cuda.launches``.
     """
     dev = x.device
     if dev.type != "cuda":
@@ -171,18 +266,30 @@ def comb_filter_cuda(x, hist, T0, T1, gains0, gains1, fade):
     _check("gains0", gains0, f32, (B, n, 3), dev)
     _check("gains1", gains1, f32, (B, n, 3), dev)
     _check("fade", fade, f32, (B, n, CHUNK), dev)
+    if step_counts is not None:
+        _check("step_counts", step_counts, torch.int64, (B,), dev)
     y = torch.empty_like(x)
     if B and n:
+        if x.data_ptr() % 16 or fade.data_ptr() % 16:
+            raise ValueError("comb_filter_cuda: x and fade must be 16-byte "
+                             "aligned")
+        # 16-byte staging of the lag and gain rows needs them aligned
+        vec = n % 4 == 0 and not any(
+            t.data_ptr() % 16 for t in (T0, T1, gains0, gains1))
         L = _comb_lib()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = L.comb_filter_launch(
                 x.data_ptr(), hist.data_ptr(), T0.data_ptr(), T1.data_ptr(),
                 gains0.data_ptr(), gains1.data_ptr(), fade.data_ptr(),
-                y.data_ptr(), B, n, stream)
+                y.data_ptr(), B, n, int(vec),
+                None if step_counts is None else step_counts.data_ptr(),
+                stream)
         if rc != 0:
             raise RuntimeError(f"comb kernel launch failed: CUDA error {rc}")
         comb_filter_cuda.launches += 1
+    elif step_counts is not None:
+        step_counts.zero_()
     # the last HIST samples of [hist, y]
     if S >= HIST:
         new_hist = y[:, S - HIST:].contiguous()
