@@ -8,7 +8,7 @@ builds everything it runs from this checkout. Phases, in order; any
 failure exits non-zero before the result line:
 
 0. card name and power limit (nvidia-smi); build the native host
-   library, the CUDA kernels (csrc/comb.cu, csrc/rot.cu) and the
+   libraries (CELT, and MP3/Musepack), the CUDA kernels (csrc/comb.cu, csrc/rot.cu) and the
    shared-memory probe (tools/smem_round_trip.cu), one nvcc each, all
    started together; the host half of the serving batch: K = 8
    stereo streams of 11,100 frames of 20 ms (3.7 min each), stream k
@@ -49,7 +49,28 @@ failure exits non-zero before the result line:
    of both host halves, device seconds, the replay / imdct / comb /
    deemph split with the replay's inner stages, the realtime factor,
    and from one torch.profiler run the device busy share and the top
-   kernels.
+   kernels;
+4. MP3 phase: K = 8 stereo Layer III streams of 3.7 min (about 17,000
+   granules each) written by tools/l3_stream.py from distinct seeds; the
+   host half (the native whole-stream entropy decode) timed on one core,
+   the device half (ops/mp3_synth.py Mp3Synth over [8, G, 2, 576])
+   timed by CUDA events; stream 0's first 2,048 granules against a
+   float64 NumPy evaluation of the same maps (1e-4 of max(|ref|, 1)),
+   batched against single-stream (1e-6), load() of the five Layer I/II
+   fixtures against their minimp3 goldens (1e-4) and of a 2 s generated
+   Layer III stream on the card against the CPU (1e-5);
+5. Musepack phase: load() of tests/fixtures/sv7_stereo.mpc against its
+   libmpcdec golden (1e-4), the host decode timed; the serving
+   synthesis (runtime.serving.synthesize_mpc_streams, float32) on the
+   fixture's requantized rows cycled to 3.7 min for 8 stereo streams
+   with staggered start frames ([16, 305,928, 32]), row 0 against the
+   float64 plain synthesis (1e-4 of max(|ref|, 1)) and batched against
+   single (1e-6).
+Phases 4 and 5 print host seconds and host audio-seconds per second,
+device seconds and the device realtime factor, and the bounds reckoned
+from the shapes (float ops at the card's float32 peak outside the tensor
+cores, bytes at its memory rate). Their paths reach no hand-written
+kernel.
 
 The kernel counts are set to 0 just before the main path runs and read
 just after; a kernel of the path with no launch there fails the run.
@@ -60,6 +81,7 @@ line {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import ctypes
+import importlib.util
 import json
 import pathlib
 import statistics
@@ -86,6 +108,11 @@ F_CHUNK = 512
 COMB_SERVE_SHAPE = (16, 40960)    # B = K*CC rows, 512*960/12 chunks
 ROT_SERVE_SHAPE = (22200, 800)    # 2F rows of one stream, WB positions
 KERNELS = ("comb", "rot")
+L3_SECONDS = 222.0                # 3.7 min a stream, as the Opus batch
+MP3_REF_GRANULES = 2048
+L12_FIXTURES = ("l2_stereo_44k", "l2_joint_44k", "l2_mono_44k_56k",
+                "l1_stereo_44k", "l2_mpeg2_22k")
+MPC_FRAMES = 8498                 # 3.7 min of 1,152-sample frames at 44.1 kHz
 PROBE_SRC = ROOT / "tools" / "smem_round_trip.cu"
 COMB_THREADS = 128                # threads of one row's block in csrc/comb.cu
 
@@ -179,6 +206,7 @@ def phase0_build(nqt_native, kernels):
     log(card)
     t0 = time.perf_counter()
     nqt_native.lib()
+    nqt_native.codec_lib()
     t_host = time.perf_counter() - t0
     t0 = time.perf_counter()
     with ThreadPoolExecutor(1) as pool:
@@ -187,7 +215,7 @@ def phase0_build(nqt_native, kernels):
         probe = probe.result()
     for name in KERNELS:
         kernels.load(name)
-    log(f"phase 0: host library built in {t_host:.2f} s; kernels "
+    log(f"phase 0: host libraries built in {t_host:.2f} s; kernels "
         f"{', '.join(KERNELS)} and the probe in "
         f"{time.perf_counter() - t0:.2f} s")
     for name, rep in kernels.build_log.items():
@@ -986,6 +1014,206 @@ def phase3_serving(comb, rot, serving, dev, rows, card, traces, decodes,
             **split, "replay_inner_ms": inner, **trace}
 
 
+def mp3_flops_per_granule(nch: int) -> int:
+    """Float ops of the MP3 synthesis per granule (all channels): the
+    three QMF products of [576 nch] by [576 nch x 576 nch] and the
+    kind-masked IMDCT, which evaluates all three kinds' A1 (18 x 18), A2
+    (9 x 18) and B1 (18 x 9) on every band."""
+    d = 576 * nch
+    return 3 * 2 * d * d + 3 * 2 * (18 * 18 + 9 * 18 + 18 * 9) * 32 * nch
+
+
+def load_tool(name: str):
+    """A module of this checkout's tools/ by its path (tools/ is no
+    package, and another ``tools`` on the path must not shadow it)."""
+    spec = importlib.util.spec_from_file_location(
+        f"_tool_{name}", ROOT / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def rate_line(label, audio_s, host_s, dev_s, card):
+    log(f"  {label}: {audio_s:.1f} s of audio; host {host_s:.3f} s on one "
+        f"core = {audio_s / host_s:.1f} audio-s per s; device {dev_s * 1e3:.3f}"
+        f" ms = realtime x{audio_s / dev_s:.1f} on {card}")
+
+
+def phase4_mp3(nqt, card, dev):
+    """The MP3 serving shape: K Layer III streams, host entropy decode on
+    one core, then the batched device synthesis; checks against a float64
+    evaluation of the same maps, single-stream runs and load()."""
+    from libnyquist_torch.formats import mp3
+    from libnyquist_torch.ops import mp3_synth
+    from libnyquist_torch.runtime import serving
+
+    make_l3_stream = load_tool("l3_stream").make_l3_stream
+    K = K_STREAMS
+    log(f"phase 4: MP3 Layer III, K={K} stereo streams x {L3_SECONDS:.0f} s")
+    t0 = time.perf_counter()
+    datas = [make_l3_stream(100 + k, L3_SECONDS) for k in range(K)]
+    gen_s = time.perf_counter() - t0
+    mp3.l3_stream_entropy(make_l3_stream(1, 0.2))    # tables set, warm
+    t0 = time.perf_counter()
+    ents = [mp3.l3_stream_entropy(d) for d in datas]
+    host_s = time.perf_counter() - t0
+    check(all(e[2:] == (2, 44100) for e in ents), "streams must be 44.1 kHz "
+          "stereo")
+    G = ents[0][0].shape[0]
+    check(all(e[0].shape[0] == G for e in ents), "equal granule counts")
+    X = np.stack([e[0] for e in ents])
+    kinds = np.stack([e[1] for e in ents])
+    del ents
+    share = np.bincount(kinds.reshape(-1), minlength=3) / kinds.size
+    log(f"  {K} streams written in {gen_s:.2f} s ({sum(map(len, datas)) / 1e6:.1f}"
+        f" MB); G = {G} granules a stream; band kinds long / stop-window / "
+        f"short {share[0]:.3f} / {share[1]:.3f} / {share[2]:.3f}")
+    t0 = time.perf_counter()
+    Xd = torch.from_numpy(X).to(dev)
+    Kd = torch.from_numpy(kinds).to(dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    def synth(x, k):
+        return serving.synthesize_mp3_streams(x, k, 2, dev)
+
+    dev_ms = cuda_ms(lambda: synth(Xd, Kd), reps=5)
+    pcm = synth(Xd, Kd)
+    torch.cuda.synchronize()
+    check(tuple(pcm.shape) == (K, G * 576, 2), f"pcm shape {tuple(pcm.shape)}")
+    check(bool(torch.isfinite(pcm).all()), "mp3 pcm not finite")
+    audio_s = K * G * 576 / 44100.0
+    rate_line("MP3 batch", audio_s, host_s, dev_ms / 1e3, card)
+
+    n0 = MP3_REF_GRANULES
+    ref = mp3_synth.synth_granules_stream(
+        mp3_synth.imdct_granules_stream(X[0, :n0], kinds[0, :n0], np.float64),
+        18, 2, np.float64)
+    got = pcm[0, : n0 * 576].double().cpu().numpy()
+    err = float(np.abs(got - ref).max())
+    scale = max(float(np.abs(ref).max()), 1.0)
+    check(err <= 1e-4 * scale, f"mp3 stream 0 vs float64 maps: {err}")
+    worst = 0.0
+    for k in (0, K - 1):
+        one = synth(Xd[k : k + 1], Kd[k : k + 1])[0]
+        worst = max(worst, (one - pcm[k]).abs().max().item())
+    bscale = max(pcm.abs().max().item(), 1.0)
+    check(worst <= 1e-6 * bscale, f"mp3 batched vs single: {worst}")
+    log(f"  stream 0, first {n0} granules vs float64 maps: max|d| {err:.3e} "
+        f"(max|ref| {scale:.3f}); batched vs single: max|d| {worst:.3e}")
+    del pcm, Xd, Kd
+
+    flops = mp3_flops_per_granule(2) * K * G
+    nbytes = X.nbytes + kinds.nbytes + K * G * 576 * 2 * 4
+    t_ops = flops / FP32_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"  bound: {flops / 1e12:.3f} TFLOP at 67 TFLOP/s = {t_ops:.2f} ms, "
+        f"{nbytes / 1e6:.1f} MB at 3.35 TB/s = {t_bytes:.3f} ms; device "
+        f"{dev_ms:.2f} ms is {dev_ms / max(t_ops, t_bytes):.2f}x the bound")
+
+    errs = {}
+    for name in L12_FIXTURES:
+        g = np.load(GOLDEN / f"{name}.npz")
+        a = nqt.load(str(FIXTURES / f"{name}.mp3"), device=dev)
+        check(a.channel_count == int(g["channels"])
+              and a.sample_rate == int(g["rate"])
+              and a.sample_count == int(g["count"]), f"{name} shape")
+        errs[name] = float(np.abs(a.samples - g["full"]).max())
+        check(errs[name] < 1e-4, f"{name} vs golden: {errs[name]}")
+    log("  load() of the Layer I/II fixtures vs minimp3 goldens: " + ", ".join(
+        f"{k} {v:.2e}" for k, v in errs.items()))
+    data = make_l3_stream(7, 2.0)
+    t0 = time.perf_counter()
+    a = nqt.load(data, extension="mp3", device=dev)
+    load_s = time.perf_counter() - t0
+    b = nqt.load(data, extension="mp3", device="cpu")
+    e = float(np.abs(a.samples - b.samples).max())
+    check(a.sample_count == b.sample_count and e <= 1e-5,
+          f"mp3 load on the card vs the CPU: {e}")
+    log(f"  load() of a 2 s Layer III stream: card vs CPU max|d| {e:.3e} "
+        f"({load_s:.3f} s on the card)")
+    return {"K": K, "granules": G, "audio_s": audio_s, "gen_s": gen_s,
+            "host_s": host_s, "host_x": audio_s / host_s,
+            "upload_s": upload_s, "device_ms": dev_ms,
+            "realtime_x": audio_s / (dev_ms / 1e3), "flops": flops,
+            "bytes": nbytes, "bound_ops_ms": t_ops, "bound_bytes_ms": t_bytes,
+            "vs_float64": err, "batched_vs_single": worst,
+            "l12_vs_golden": errs, "l3_load_card_vs_cpu": e,
+            "kind_share": share.tolist()}
+
+
+def phase5_mpc(nqt, card, dev):
+    """Musepack: load() against its golden, then the serving synthesis on
+    the fixture's requantized rows cycled to 3.7 min a stream."""
+    from libnyquist_torch.formats import musepack
+    from libnyquist_torch.runtime import serving
+
+    K = K_STREAMS
+    log(f"phase 5: Musepack, load() and K={K} stereo streams x "
+        f"{MPC_FRAMES} frames")
+    path = FIXTURES / "sv7_stereo.mpc"
+    data = path.read_bytes()
+    g = np.load(GOLDEN / "mpc_sv7.npz")
+    t0 = time.perf_counter()
+    a = nqt.load(str(path), device=dev)
+    load_s = time.perf_counter() - t0
+    check(a.channel_count == 2 and a.sample_rate == int(g["rate"])
+          and a.sample_count == int(g["count"]), "sv7 shape")
+    err_g = float(np.abs(a.samples - g["full"]).max())
+    check(err_g < 1e-4, f"sv7 vs golden: {err_g}")
+    host = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        Y, ch, rate = musepack.requantized_rows(data)
+        host.append(time.perf_counter() - t0)
+    host_s = statistics.median(host)
+    F0 = Y.shape[1] // 36
+    fix_s = a.sample_count / 2 / rate
+    log(f"  sv7_stereo.mpc: max|d| vs libmpcdec golden {err_g:.3e}; load() "
+        f"{load_s:.3f} s on the card; host decode (entropy + requantize, "
+        f"{F0} frames, {fix_s:.3f} s of audio) {host_s * 1e3:.2f} ms = "
+        f"{fix_s / host_s:.1f} audio-s per s on one core")
+    Yf = Y.reshape(2, F0, 36, 32)
+    ys = np.empty((2 * K, MPC_FRAMES * 36, 32), np.float32)
+    for k in range(K):
+        fr = (5 * k + np.arange(MPC_FRAMES)) % F0    # staggered starts
+        ys[2 * k : 2 * k + 2] = Yf[:, fr].reshape(2, -1, 32)
+    t0 = time.perf_counter()
+    ysd = torch.from_numpy(ys).to(dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    dev_ms = cuda_ms(lambda: serving.synthesize_mpc_streams(ysd, dev), reps=5)
+    out = serving.synthesize_mpc_streams(ysd, dev)
+    torch.cuda.synchronize()
+    T = MPC_FRAMES * 36
+    check(tuple(out.shape) == (2 * K, T * 32), f"mpc out {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), "mpc pcm not finite")
+    audio_s = K * T * 32 / rate
+    ref = musepack._synth_stream(ys[0].astype(np.float64)).reshape(-1)
+    err = float(np.abs(out[0].double().cpu().numpy() - ref).max())
+    scale = max(float(np.abs(ref).max()), 1.0)
+    check(err <= 1e-4 * scale, f"mpc row 0 vs float64: {err}")
+    one = serving.synthesize_mpc_streams(ysd[3:4], dev)[0]
+    worst = (one - out[3]).abs().max().item()
+    check(worst <= 1e-6 * max(out.abs().max().item(), 1.0),
+          f"mpc batched vs single: {worst}")
+    nbytes = ys.nbytes + out.numel() * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"  Musepack batch: {audio_s:.1f} s of audio; device {dev_ms:.3f} ms"
+        f" = realtime x{audio_s / (dev_ms / 1e3):.1f} on {card} (the host "
+        f"half is the fixture's rate above)")
+    log(f"  row 0 vs float64 plain synthesis: max|d| {err:.3e} (max|ref| "
+        f"{scale:.3f}); batched vs single: max|d| {worst:.3e}; bound "
+        f"{nbytes / 1e6:.1f} MB at 3.35 TB/s = {t_bytes:.3f} ms, device "
+        f"{dev_ms:.3f} ms is {dev_ms / t_bytes:.1f}x the bound")
+    return {"K": K, "rows": 2 * K, "T": T, "audio_s": audio_s,
+            "fixture_s": fix_s, "host_fixture_s": host_s,
+            "host_x": fix_s / host_s, "load_s": load_s,
+            "upload_s": upload_s, "device_ms": dev_ms,
+            "realtime_x": audio_s / (dev_ms / 1e3), "bytes": nbytes,
+            "bound_bytes_ms": t_bytes, "vs_golden": err_g,
+            "vs_float64": err, "batched_vs_single": worst}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -1013,7 +1241,11 @@ def main() -> int:
     phase2_load(nqt, comb, dev)
     serve = phase3_serving(comb, rot, serving, dev, rows, card, traces,
                            decodes, host, synth)
-    log(json.dumps({"serving": serve, "card": card}))
+    del traces, decodes, synth
+    torch.cuda.empty_cache()
+    mp3 = phase4_mp3(nqt, card, dev)
+    mpc = phase5_mpc(nqt, card, dev)
+    log(json.dumps({"serving": serve, "mp3": mp3, "mpc": mpc, "card": card}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": list(rows)}), flush=True)

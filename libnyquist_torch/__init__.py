@@ -1,9 +1,10 @@
 """libnyquist_torch: the PyTorch/CUDA port of the libnyquist decoders.
 
 Host code (Python plus native C, built at first use) does the entropy
-decode; PyTorch on an NVIDIA card replays the PVQ value plane and does
-the dense per-frame synthesis, with the spreading rotation and the pitch
-postfilter as hand-written CUDA kernels. Entry points
+decode; PyTorch on an NVIDIA card does the dense per-frame work: for
+CELT/Opus the PVQ value-plane replay and the synthesis, with the
+spreading rotation and the pitch postfilter as hand-written CUDA
+kernels; for MP3 and Musepack the synthesis filterbanks as products. Entry points
 take ``device=None`` and run on CUDA unless the caller passes another
 device (``device="cpu"`` runs the plain PyTorch versions).
 

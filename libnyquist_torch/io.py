@@ -2,8 +2,9 @@
 
 Equivalent of the reference's ``nqr::NyquistIO::Load`` (reference:
 src/Common.cpp:36-151) for the formats the port covers so far: Ogg Opus
-with CELT-only streams. Other formats raise NotImplementedError naming
-the ROADMAP.md queue item that ports them.
+with CELT-only streams, MP3 (Layer I/II and Layer III) and Musepack (SV7
+and SV8). Other formats raise NotImplementedError naming the ROADMAP.md
+queue item that ports them.
 """
 
 from __future__ import annotations
@@ -11,17 +12,20 @@ from __future__ import annotations
 import os
 from typing import Optional, Union
 
-from .audio_data import AudioData
+from .audio_data import AudioData, PCMFormat
 from .device import resolve_device
 from .errors import DecodeError, UnsupportedExtensionError
 
 _PCM_ITEM = "queue item 'PCM, ADPCM and the load facade'"
-_CODEC_ITEM = "queue item 'Other codecs'"
+_VORBIS_ITEM = "queue item 'Ogg Vorbis'"
+_LOSSLESS_ITEM = "queue item 'FLAC and WavPack'"
 _LATER = {
     **dict.fromkeys(("wav", "wave", "aiff", "aif", "aifc", "caf"),
                     _PCM_ITEM),
-    **dict.fromkeys(("flac", "mp3", "wv", "mpc"), _CODEC_ITEM),
+    **dict.fromkeys(("flac", "oggflac", "wv"), _LOSSLESS_ITEM),
+    **dict.fromkeys(("ogg", "oga", "vorbis"), _VORBIS_ITEM),
 }
+_BYTES_PER_SAMPLE = {PCMFormat.PCM_16: 2, PCMFormat.PCM_FLT: 4}
 
 
 def _ogg_subtype(data: bytes) -> Optional[str]:
@@ -40,13 +44,54 @@ def _ogg_subtype(data: bytes) -> Optional[str]:
     return None
 
 
+def sniff_extension(data: bytes) -> Optional[str]:
+    """The format from magic bytes (reference: Common.cpp:66-127), as a
+    canonical extension, or None."""
+    if len(data) < 12:
+        return None
+    if data[:4] == b"RIFF" and data[8:12] == b"WAVE":
+        return "wav"
+    if data[:4] == b"FORM" and data[8:12] in (b"AIFF", b"AIFC"):
+        return "aiff"
+    if data[:4] == b"caff":
+        return "caf"
+    if data[:4] == b"fLaC":
+        return "flac"
+    if data[:4] == b"OggS":
+        return {"opus": "opus", "flac": "oggflac"}.get(_ogg_subtype(data),
+                                                      "ogg")
+    if data[:4] == b"wvpk":
+        return "wv"
+    if data[:4] == b"MPCK" or data[:3] == b"MP+":
+        return "mpc"
+    if data[:3] == b"ID3":
+        return "mp3"
+    if data[0] == 0xFF and (data[1] & 0xE0) == 0xE0:
+        return "mp3"
+    return None
+
+
+def _decoder(ext: str):
+    if ext == "mp3":
+        from .formats.mp3 import decode_mp3_buffer
+        return decode_mp3_buffer
+    if ext == "mpc":
+        from .formats.musepack import decode_musepack_buffer
+        return decode_musepack_buffer
+    return None
+
+
 def load(
     source: Union[str, bytes, bytearray, memoryview],
     extension: Optional[str] = None,
     device=None,
 ) -> AudioData:
     """Decode an audio file or in-memory buffer on ``device`` (default
-    CUDA; raises when CUDA is absent). Returns host AudioData."""
+    CUDA; raises when CUDA is absent). Returns host AudioData.
+
+    Dispatch as the reference's: explicit extension, then the path's,
+    then the buffer's magic bytes; an Ogg container goes by its first
+    page whatever the extension says."""
     dev = resolve_device(device)
     if isinstance(source, str):
         with open(source, "rb") as f:
@@ -55,26 +100,37 @@ def load(
             extension = os.path.splitext(source)[1][1:]
     else:
         data = bytes(source)
-    ext = (extension or "").lower().lstrip(".")
+    ext = (extension or "").lower().lstrip(".") or sniff_extension(data) or ""
     sub = _ogg_subtype(data)
+    decode = _decoder(ext)
+    audio = AudioData()
     if sub == "opus" or (sub is None and ext == "opus"):
         from .formats.opus import decode_opus_buffer
 
-        audio = AudioData()
         try:
             decode_opus_buffer(data, audio, device=dev)
         except (ValueError, IndexError) as e:
             raise DecodeError(
                 f"malformed opus stream: {type(e).__name__}: {e}") from e
-        audio.frame_size = audio.channel_count * 4
-        if audio.sample_rate > 0 and audio.channel_count > 0:
-            audio.length_seconds = (
-                audio.sample_count / audio.channel_count / audio.sample_rate)
-        return audio
-    if sub is not None:
+    elif sub is not None:
         raise NotImplementedError(
-            f"Ogg {sub}: see ROADMAP.md, {_CODEC_ITEM}")
-    if ext in _LATER:
+            f"Ogg {sub}: see ROADMAP.md, "
+            f"{_VORBIS_ITEM if sub == 'vorbis' else _LOSSLESS_ITEM}")
+    elif decode is not None:
+        try:
+            decode(data, audio, dev)
+        except (ValueError, IndexError, KeyError, OverflowError) as e:
+            # malformed input tripped an internal path
+            raise DecodeError(
+                f"malformed {ext} stream: {type(e).__name__}: {e}") from e
+    elif ext in _LATER:
         raise NotImplementedError(
             f"{ext} files: see ROADMAP.md, {_LATER[ext]}")
-    raise UnsupportedExtensionError(f"no decoder for extension {ext!r}")
+    else:
+        raise UnsupportedExtensionError(f"no decoder for extension {ext!r}")
+    if audio.sample_rate > 0 and audio.channel_count > 0:
+        audio.length_seconds = (
+            audio.sample_count / audio.channel_count / audio.sample_rate)
+    audio.frame_size = audio.channel_count * _BYTES_PER_SAMPLE.get(
+        audio.source_format, 4)
+    return audio

@@ -1,11 +1,15 @@
-"""Native host-ops loader: builds and binds the port's CELT host library.
+"""Native host-ops loader: builds and binds the port's two host libraries.
 
-The entropy decode (range decoder, bit allocation, PVQ index decode),
-the bits-only trace decode with its leaf packer, and the Ogg/Opus packet
-scan are branchy byte-serial work that stays on the host in C
-(``libnyquist_torch/native/``). The library is built with the
-system ``cc`` at first use into ``libnyquist_torch/_build/`` and bound
-with ctypes. There is no Python fallback: a failed build raises.
+* ``libcelthost.so`` (``lib()``): the CELT entropy decode (range
+  decoder, bit allocation, PVQ index decode), the bits-only trace decode
+  with its leaf packer, and the Ogg/Opus packet scan;
+* ``libcodechost.so`` (``codec_lib()``): the MP3 Layer III whole-stream
+  entropy decode and the Musepack SV7/SV8 frame reader.
+
+Both are branchy byte-serial work that stays on the host in C
+(``libnyquist_torch/native/``), built with the system ``cc`` at first
+use into ``libnyquist_torch/_build/`` and bound with ctypes. There is no
+Python fallback: a failed build raises.
 """
 
 from __future__ import annotations
@@ -21,14 +25,16 @@ _NATIVE_DIR = _PKG / "native"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("celt_bands.c", "ogg_opus.c", "replay_pack.c")
 _HEADERS = ("ecdec.h",)
+CODEC_SOURCES = ("mp3_stream.c", "mp3_huff.c", "mpc_frame.c")
 _LIB = None
+_CODEC_LIB = None
 _LOCK = threading.Lock()
 
 
-def _build() -> pathlib.Path:
-    srcs = [_NATIVE_DIR / s for s in SOURCES]
-    deps = srcs + [_NATIVE_DIR / h for h in _HEADERS]
-    out = BUILD_DIR / "libcelthost.so"
+def _build(name: str, sources, headers) -> pathlib.Path:
+    srcs = [_NATIVE_DIR / s for s in sources]
+    deps = srcs + [_NATIVE_DIR / h for h in headers]
+    out = BUILD_DIR / f"lib{name}.so"
     if out.exists() and all(
         out.stat().st_mtime >= d.stat().st_mtime for d in deps
     ):
@@ -39,7 +45,7 @@ def _build() -> pathlib.Path:
     # load a half-written library. -march=native is safe because the
     # library is always built on the machine that runs it; retry without
     # it for compilers that reject the flag.
-    tmp = out.with_name(f".libcelthost.{os.getpid()}.so")
+    tmp = out.with_name(f".lib{name}.{os.getpid()}.so")
     errors = []
     for extra in (["-march=native"], []):
         cmd = ["cc", "-O3", *extra, "-fPIC", "-shared",
@@ -54,7 +60,8 @@ def _build() -> pathlib.Path:
         os.replace(tmp, out)
         return out
     raise RuntimeError(
-        "building the CELT host library failed:\n" + "\n".join(errors))
+        f"building the host library lib{name}.so failed:\n"
+        + "\n".join(errors))
 
 
 def _bind(L: ctypes.CDLL) -> ctypes.CDLL:
@@ -143,5 +150,58 @@ def lib() -> ctypes.CDLL:
     global _LIB
     with _LOCK:
         if _LIB is None:
-            _LIB = _bind(ctypes.CDLL(str(_build())))
+            _LIB = _bind(ctypes.CDLL(str(_build("celthost", SOURCES,
+                                                _HEADERS))))
         return _LIB
+
+
+def _bind_codec(L: ctypes.CDLL) -> ctypes.CDLL:
+    c_int, c_i32, c_i64 = ctypes.c_int, ctypes.c_int32, ctypes.c_int64
+    vp = ctypes.c_void_p
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    # native/mp3_stream.c: table pointers, then the whole-stream decode
+    L.mp3s_init_tables.restype = None
+    L.mp3s_init_tables.argtypes = [
+        vp, c_i32, vp, vp,                      # tabs, tabs_len, tab32, tab33
+        vp, vp, vp,                             # tabindex, linbits, pow43
+        vp, vp, vp, vp,                         # scf long, short, mixed, parts
+        vp, vp, vp,                             # scfc_decode, mod, preamp
+        vp, vp, vp,                             # expfrac, pan, aa
+    ]
+    L.mp3s_l3_stream.restype = c_i64
+    L.mp3s_l3_stream.argtypes = [
+        ctypes.c_char_p, c_i64, i64p, vp,       # data, len, pos (in/out), state
+        vp, vp, vp,                             # grbufs, kinds, info
+        c_i64, c_i32, i32p,                     # maxG, pending, flag (out)
+    ]
+    # native/mpc_frame.c
+    L.mpc_set_tables.restype = None
+    L.mpc_set_tables.argtypes = [
+        i32p, ctypes.c_char_p, i64p,            # can rows/syms/meta
+        i32p, i64p,                             # lut rows/meta
+        i32p, i32p,                             # dc, res_bit
+    ]
+    L.mpc_read_frame.restype = c_i64
+    L.mpc_read_frame.argtypes = (
+        [ctypes.c_char_p, c_i64, i64p]          # buf, len, io
+        + [c_int] * 4                           # sv7, key, max_band, ms
+        + [i32p] * 11)                          # state planes
+    L.mpc_read_frames_sv8.restype = c_i64
+    L.mpc_read_frames_sv8.argtypes = (
+        [ctypes.c_char_p, c_i64, i64p]          # buf, len, io
+        + [c_int] * 4                           # n, key_first, max_band, ms
+        + [i32p] * 15)                          # state planes, 4 snapshots
+    return L
+
+
+def codec_lib() -> ctypes.CDLL:
+    """The bound MP3/Musepack host library, built on first call. Raises
+    on failure. Its table setters are called once by the format modules
+    (``formats/mp3.py``, ``formats/musepack.py``), each under its lock."""
+    global _CODEC_LIB
+    with _LOCK:
+        if _CODEC_LIB is None:
+            _CODEC_LIB = _bind_codec(ctypes.CDLL(str(
+                _build("codechost", CODEC_SOURCES, ()))))
+        return _CODEC_LIB

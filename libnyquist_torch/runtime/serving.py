@@ -17,6 +17,11 @@ per-stream. Two shapes:
 value plane on the device from its host trace (``ops/celt_replay.py``)
 into the layout ``run_synthesis_batched`` takes (rows ordered
 ``c*K + k``) and runs the step loop on it.
+
+The same batching serves MP3 (``synthesize_mp3_streams``: the IMDCT and
+QMF products of ``ops/mp3_synth.py`` over [S, G] granule batches) and
+Musepack (``synthesize_mpc_streams``: one product and the 16-tap combine
+over [stream x channel] rows of requantized subband samples).
 """
 
 from __future__ import annotations
@@ -29,10 +34,12 @@ import torch
 
 from ..device import resolve_device
 from ..formats.opus.celt_host import COMBFILTER_MINPERIOD
+from ..formats import musepack
 from ..formats.opus.celt_tables import COMB_GAINS, mode48000
 from ..ops import celt_replay as replay_ops
 from ..ops import comb as comb_ops
 from ..ops import imdct as imdct_ops
+from ..ops import mp3_synth
 from ..ops import scan_iir
 from .batching import bucket_size
 from .opus_pipeline import (
@@ -480,3 +487,42 @@ def run_stream_batched(streams, synth, K, CC, n_steps, f_chunk, *,
     return run_synthesis_batched(spec, synth, K, CC, n_steps, f_chunk,
                                  with_comb=with_comb,
                                  with_deemph=with_deemph)
+
+
+# --------------------------------------------------------------------------
+# MP3 and Musepack serving: batched device synthesis over streams
+# --------------------------------------------------------------------------
+def synthesize_mp3_streams(X, kinds, nch: int, device=None) -> torch.Tensor:
+    """K-stream MP3 dense half on the device.
+
+    Args:
+      X: [S, G, C, 576] float32 frequency planes of S streams of G
+        granules (each from ``formats.mp3.l3_stream_entropy``; a stream
+        that resets or changes parameters is decoded per segment by
+        ``load()`` instead), NumPy or tensor.
+      kinds: [S, G, C, 32] int8 band kinds; they become bool masks on the
+        device.
+    Returns PCM [S, G * 576, nch] on the device, every stream starting
+    from silence.
+    """
+    dev = resolve_device(device)
+    X = torch.as_tensor(X, dtype=torch.float32, device=dev)
+    kinds = torch.as_tensor(kinds, dtype=torch.int8, device=dev)
+    return mp3_synth.synth_module(nch, 18, dev)(X, kinds)
+
+
+def synthesize_mpc_streams(ys, device=None) -> torch.Tensor:
+    """Batched whole-stream Musepack synthesis in float32, zero initial V
+    state (reference: musepack/libmpcdec/synth_filter.c:356).
+
+    Args:
+      ys: [R, T, 32] requantized subband rows (T = 36 * n_frames) of R
+        stream-channels (``formats.musepack.requantized_rows``), NumPy
+        or tensor.
+    Returns [R, T * 32] pcm on the device: one [R*T, 32] @ [32, 64]
+    product plus the 16-tap sliding combine, row for row the plain
+    ``formats.musepack._synth_stream``.
+    """
+    dev = resolve_device(device)
+    return musepack.synth_rows(torch.as_tensor(ys, dtype=torch.float32,
+                                               device=dev))

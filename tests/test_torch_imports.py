@@ -28,7 +28,8 @@ def _port_modules():
 def test_port_modules_import_without_jax():
     mods = _port_modules()
     for name in ("ops.comb", "ops.rot", "ops.celt_replay",
-                 "formats.opus.iy_split", "runtime.serving"):
+                 "formats.opus.iy_split", "runtime.serving", "formats.mp3",
+                 "formats.musepack", "ops.mp3_synth"):
         assert f"libnyquist_torch.{name}" in mods
     # Only what the port's imports add counts: an interpreter start-up hook
     # may load jax before any of them runs.
@@ -73,7 +74,7 @@ def test_load_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 @pytest.mark.parametrize("name", [
-    "l1_stereo_44k.mp3", "floor0_mono8k.ogg", "sv7_stereo.mpc",
+    "dsd_raw.wv", "floor0_mono8k.ogg", "kitty8_dithered.oga",
     "hybrid_mono.wv",
 ])
 def test_other_formats_name_their_roadmap_item(name):
