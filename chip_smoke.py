@@ -66,11 +66,29 @@ failure exits non-zero before the result line:
    with staggered start frames ([16, 305,928, 32]), row 0 against the
    float64 plain synthesis (1e-4 of max(|ref|, 1)) and batched against
    single (1e-6).
-Phases 4 and 5 print host seconds and host audio-seconds per second,
+6. Vorbis phase: K = 8 stereo floor-1 streams of 3.7 min at 44.1 kHz,
+   blocksizes 256/2048, written by tools/vorbis_stream.py from seeds
+   200-207 with one block-size sequence (one lap plan); the host half
+   (the native whole-stream entropy decode) timed on one core, the device
+   half (runtime.serving.synthesize_vorbis_streams_mixed on [16, F, 1024],
+   F about 10,000 packets) timed by CUDA events; row 0 against a float64
+   NumPy evaluation of the same plan (1e-4 of max(|ref|, 1)), batched
+   against single-stream (1e-6), load() of tests/fixtures/floor0_mono8k.ogg
+   against its libvorbis golden (1e-3) and of a 2 s writer stream on the
+   card against the CPU (1e-5);
+7. PCM phase: WAV u8/s16/s24/s32/f32/f64 stereo at 44.1 kHz, s24 at
+   96 kHz, a WAV IMA-ADPCM file (block align 2,048, stereo), AIFC ima4,
+   ulaw and sowt and a big-endian CAF, 3.7 min each, written here with
+   struct from seeded bytes: load() on the card against the CPU (exactly
+   equal, the float formats reported), the first 64 ADPCM blocks against
+   a scalar IMA decoder; per file the load() wall time, the host-to-device
+   copy and the device conversion or scan by CUDA events beside its byte
+   bound.
+Phases 4 to 6 print host seconds and host audio-seconds per second,
 device seconds and the device realtime factor, and the bounds reckoned
 from the shapes (float ops at the card's float32 peak outside the tensor
-cores, bytes at its memory rate). Their paths reach no hand-written
-kernel.
+cores, bytes at its memory rate). Their paths and phase 7's reach no
+hand-written kernel.
 
 The kernel counts are set to 0 just before the main path runs and read
 just after; a kernel of the path with no launch there fails the run.
@@ -113,6 +131,10 @@ MP3_REF_GRANULES = 2048
 L12_FIXTURES = ("l2_stereo_44k", "l2_joint_44k", "l2_mono_44k_56k",
                 "l1_stereo_44k", "l2_mpeg2_22k")
 MPC_FRAMES = 8498                 # 3.7 min of 1,152-sample frames at 44.1 kHz
+VORBIS_SECONDS = 222.0            # 3.7 min a stream, as the other batches
+VORBIS_BLOCK_SEED = 5             # one block-size sequence for the batch
+PCM_SECONDS = 222.0
+ADPCM_BLOCK = 2048                # WAV IMA-ADPCM block align, stereo
 PROBE_SRC = ROOT / "tools" / "smem_round_trip.cu"
 COMB_THREADS = 128                # threads of one row's block in csrc/comb.cu
 
@@ -1214,6 +1236,357 @@ def phase5_mpc(nqt, card, dev):
             "vs_float64": err, "batched_vs_single": worst}
 
 
+def vorbis_plan_f64(specs_row: np.ndarray, plan: dict) -> np.ndarray:
+    """One row's mixed-block synthesis in float64 NumPy: the same plan
+    (products by the float64 IMDCT matrices, the lap windows, the two
+    gathers), independent of the device code."""
+    from libnyquist_torch.formats import vorbis
+
+    F = specs_row.shape[0]
+    nmax = plan["nmax"]
+    ns = np.asarray(plan["ns"])
+    tw = np.zeros((F, nmax))
+    for n in sorted(set(plan["ns"])):
+        sel = np.nonzero(ns == n)[0]
+        tw[sel, :n] = specs_row[sel, : n // 2].astype(np.float64) @ \
+            vorbis.imdct_matrix(n).T
+    flat = (tw * plan["W"]).reshape(-1)
+    ip, ic = plan["idx_prev"], plan["idx_cur"]
+    return (np.where(ip >= 0, flat[np.maximum(ip, 0)], 0.0)
+            + np.where(ic >= 0, flat[np.maximum(ic, 0)], 0.0))
+
+
+def phase6_vorbis(nqt, card, dev):
+    """The Vorbis serving shape: K floor-1 streams written by
+    tools/vorbis_stream.py with one block-size sequence (one lap plan),
+    host entropy decode on one core, then the batched device synthesis;
+    checks against a float64 evaluation of the plan, single-stream runs
+    and load()."""
+    from libnyquist_torch.formats import vorbis
+    from libnyquist_torch.runtime import serving
+
+    make = load_tool("vorbis_stream").make_vorbis_stream
+    K = K_STREAMS
+    log(f"phase 6: Ogg Vorbis, K={K} stereo streams x {VORBIS_SECONDS:.0f} s"
+        f" at 44.1 kHz, blocksizes 256/2048")
+    t0 = time.perf_counter()
+    datas = [make(200 + k, VORBIS_SECONDS, block_seed=VORBIS_BLOCK_SEED)
+             for k in range(K)]
+    gen_s = time.perf_counter() - t0
+
+    def entropy(data):
+        return vorbis._decode_stream_packets(
+            vorbis._collect_stream_native(data))
+
+    entropy(make(1, 0.2))            # library built, setup parsed
+    t0 = time.perf_counter()
+    ents = [entropy(d) for d in datas]
+    host_s = time.perf_counter() - t0
+    staged0, bss, ch, rate, _ = ents[0]
+    check(ch == 2 and rate == 44100 and bss == (256, 2048),
+          "streams must be 44.1 kHz stereo, blocksizes 256/2048")
+    meta = [(n, bf, lp, ln) for (_s, n, bf, lp, ln, _nz) in staged0]
+    for st, *_ in ents[1:]:
+        check([(n, bf, lp, ln) for (_s, n, bf, lp, ln, _nz) in st] == meta,
+              "the streams must share one block-size sequence")
+    t0 = time.perf_counter()
+    plan = serving.vorbis_lap_plan(meta, bss)
+    specs = np.concatenate([vorbis.staged_specs(st, ch, plan["nmax"] // 2)
+                            for st, *_ in ents])
+    stage_s = time.perf_counter() - t0
+    F, out_len = len(meta), plan["out_len"]
+    n_long = sum(m[0] == 2048 for m in meta)
+    log(f"  {K} streams written in {gen_s:.2f} s "
+        f"({sum(map(len, datas)) / 1e6:.1f} MB); F = {F} packets a stream "
+        f"({n_long} long, {F - n_long} short); lap plan and padded spectra "
+        f"[{specs.shape[0]}, {F}, {specs.shape[2]}] in {stage_s:.2f} s")
+    t0 = time.perf_counter()
+    specs_d = torch.from_numpy(specs).to(dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serving._vorbis_plan_tensors(plan, dev)
+    torch.cuda.synchronize()
+    plan_upload_s = time.perf_counter() - t0
+
+    def synth(x):
+        return serving.synthesize_vorbis_streams_mixed(x, plan, dev)
+
+    torch.cuda.reset_peak_memory_stats()
+    dev_ms = cuda_ms(lambda: synth(specs_d), reps=5)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    pcm = synth(specs_d)
+    torch.cuda.synchronize()
+    R = 2 * K
+    check(tuple(pcm.shape) == (R, out_len), f"pcm {tuple(pcm.shape)}")
+    check(bool(torch.isfinite(pcm).all()), "vorbis pcm not finite")
+    audio_s = K * out_len / rate
+    rate_line("Vorbis batch", audio_s, host_s, dev_ms / 1e3, card)
+
+    ref = vorbis_plan_f64(specs[0], plan)
+    err = float(np.abs(pcm[0].double().cpu().numpy() - ref).max())
+    scale = max(float(np.abs(ref).max()), 1.0)
+    check(err <= 1e-4 * scale, f"vorbis row 0 vs float64: {err}")
+    worst = 0.0
+    for k in (0, K - 1):
+        one = synth(specs_d[2 * k : 2 * k + 2])
+        worst = max(worst, (one - pcm[2 * k : 2 * k + 2]).abs().max().item())
+    bscale = max(pcm.abs().max().item(), 1.0)
+    check(worst <= 1e-6 * bscale, f"vorbis batched vs single: {worst}")
+    log(f"  row 0 vs float64 evaluation of the plan: max|d| {err:.3e} "
+        f"(max|ref| {scale:.3f}); batched vs single: max|d| {worst:.3e}; "
+        f"peak device memory {peak_gb:.2f} GB")
+    del pcm, one
+
+    # the bounds, from the shapes: the products' float ops at the float32
+    # rate; the function's bytes (spectra, windows, indices and masks in,
+    # pcm out) at the memory rate; the plain path also writes and reads
+    # the [R, F, 2048] windowed plane
+    flops = 2 * R * sum(n * (n // 2) for n, *_ in meta)
+    io_bytes = (specs.nbytes + plan["W"].nbytes + 2 * out_len * (8 + 4)
+                + R * out_len * 4)
+    plane = 2 * R * F * plan["nmax"] * 4
+    t_ops = flops / FP32_FLOPS * 1e3
+    t_bytes = io_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"  bound: {flops / 1e12:.3f} TFLOP at 67 TFLOP/s = {t_ops:.2f} ms, "
+        f"{io_bytes / 1e9:.2f} GB in and out at 3.35 TB/s = {t_bytes:.3f} ms "
+        f"(+ {plane / 1e9:.2f} GB of windowed plane written and read = "
+        f"{plane / HBM_BYTES_PER_S * 1e3:.3f} ms); device {dev_ms:.2f} ms is "
+        f"{dev_ms / max(t_ops, t_bytes):.2f}x the bound")
+    del specs_d
+
+    g = np.load(GOLDEN / "floor0_mono8k.npz")
+    a = nqt.load(str(FIXTURES / "floor0_mono8k.ogg"), device=dev)
+    check(a.channel_count == 1 and a.sample_rate == 8000
+          and a.sample_count == int(g["count"]), "floor0 shape")
+    err_g = float(np.abs(a.samples - g["full"]).max())
+    check(err_g < 1e-3, f"floor0 vs golden: {err_g}")
+    data = make(7, 2.0)
+    t0 = time.perf_counter()
+    a = nqt.load(data, extension="ogg", device=dev)
+    load_s = time.perf_counter() - t0
+    b = nqt.load(data, extension="ogg", device="cpu")
+    e = float(np.abs(a.samples - b.samples).max())
+    check(a.sample_count == b.sample_count and e <= 1e-5,
+          f"vorbis load on the card vs the CPU: {e}")
+    log(f"  load() of tests/fixtures/floor0_mono8k.ogg vs libvorbis golden: "
+        f"max|d| {err_g:.3e}; of a 2 s writer stream: card vs CPU max|d| "
+        f"{e:.3e} ({load_s:.3f} s on the card)")
+    return {"K": K, "packets": F, "long_packets": n_long,
+            "out_len": out_len, "audio_s": audio_s, "gen_s": gen_s,
+            "host_s": host_s, "host_x": audio_s / host_s,
+            "stage_s": stage_s, "upload_s": upload_s,
+            "plan_upload_s": plan_upload_s, "device_ms": dev_ms,
+            "realtime_x": audio_s / (dev_ms / 1e3), "flops": flops,
+            "io_bytes": io_bytes, "plane_bytes": plane,
+            "bound_ops_ms": t_ops, "bound_bytes_ms": t_bytes,
+            "peak_gb": peak_gb, "vs_float64": err, "batched_vs_single": worst,
+            "floor0_vs_golden": err_g, "load_card_vs_cpu": e}
+
+
+# --------------------------------------------------------------------------
+# phase 7: PCM containers written here with struct
+# --------------------------------------------------------------------------
+def wav_file(fmt_code, ch, rate, bits, payload, block_align=None, fact=None):
+    """A RIFF/WAVE file around ``payload`` (fmt, optional fact, data)."""
+    ba = block_align or ch * bits // 8
+    body = b"WAVE" + b"fmt " + struct.pack(
+        "<IHHIIHH", 16, fmt_code, ch, rate, rate * ba, ba, bits)
+    if fact is not None:
+        body += b"fact" + struct.pack("<II", 4, fact)
+    body += b"data" + struct.pack("<I", len(payload)) + payload
+    if len(payload) & 1:
+        body += b"\0"
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+def aifc_file(comp, ch, bits, payload, frames, rate=44100):
+    """An AIFF-C file: FORM AIFC, COMM with a compression type, SSND."""
+    exp = rate.bit_length() - 1
+    f80 = struct.pack(">HQ", 16383 + exp, rate << (63 - exp))
+    comm = struct.pack(">hIh", ch, frames, bits) + f80 + comp + b"\0\0"
+    body = b"AIFC" + b"COMM" + struct.pack(">I", len(comm)) + comm
+    body += b"SSND" + struct.pack(">III", len(payload) + 8, 0, 0) + payload
+    if len(payload) & 1:
+        body += b"\0"
+    return b"FORM" + struct.pack(">I", len(body)) + body
+
+
+def caf_file(fid, flags, bpp, fpp, ch, bpc, payload, rate=44100.0):
+    """A CAF file: caff header, desc, data (edit count, then samples)."""
+    desc = struct.pack(">d4sIIIII", rate, fid, flags, bpp, fpp, ch, bpc)
+    return (b"caff\x00\x01\x00\x00" + b"desc" + struct.pack(">q", len(desc))
+            + desc + b"data" + struct.pack(">q", len(payload) + 4)
+            + b"\0\0\0\0" + payload)
+
+
+def scalar_ima(nibbles, pred, step):
+    """The serial IMA decoder of the spec (reference WavDecoder.cpp:75-134),
+    the predictor wrapping as a C int16."""
+    from libnyquist_torch.ops.adpcm import IMA_INDEX_TABLE, IMA_STEP_TABLE
+
+    out = np.empty(len(nibbles), np.int64)
+    for i, nb in enumerate(nibbles):
+        s = int(IMA_STEP_TABLE[step])
+        diff = (s >> 3) + (s if nb & 4 else 0) + (s >> 1 if nb & 2 else 0) \
+            + (s >> 2 if nb & 1 else 0)
+        pred = ((pred - diff if nb & 8 else pred + diff) + 0x8000) % 65536 \
+            - 0x8000
+        step = min(max(step + int(IMA_INDEX_TABLE[nb]), 0), 88)
+        out[i] = pred
+    return out
+
+
+def pcm_inputs(rng):
+    """(name, file bytes, extension, device conversion on the uploaded
+    raw payload, raw payload bytes, exact): 3.7 min of stereo each."""
+    from libnyquist_torch.audio_data import PCMFormat as PF
+    from libnyquist_torch.formats import aiff
+    from libnyquist_torch.ops import adpcm, pcm
+
+    frames = int(PCM_SECONDS * 44100)
+    out = []
+
+    def rand_bytes(n):
+        return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+
+    for name, bits, code, fmt, dtype in (
+            ("u8", 8, 1, PF.PCM_U8, torch.uint8),
+            ("s16", 16, 1, PF.PCM_16, torch.int16),
+            ("s24", 24, 1, PF.PCM_24, None),
+            ("s32", 32, 1, PF.PCM_32, torch.int32),
+            ("f32", 32, 3, PF.PCM_FLT, torch.float32),
+            ("f64", 64, 3, PF.PCM_DBL, torch.float64)):
+        if code == 3:
+            payload = (rng.standard_normal(2 * frames) * 0.3).astype(
+                f"<f{bits // 8}").tobytes()
+        else:
+            payload = rand_bytes(2 * frames * bits // 8)
+
+        def conv(raw, fmt=fmt, dtype=dtype):
+            return pcm.pcm_to_float32(
+                raw.view(-1, 3) if dtype is None else raw.view(dtype), fmt)
+
+        out.append((f"WAV {name}", wav_file(code, 2, 44100, bits, payload,
+                                            fact=frames if code == 3 else None),
+                    "wav", conv, payload, code != 3))
+    f96 = int(PCM_SECONDS * 96000)
+    payload = rand_bytes(2 * f96 * 3)
+    out.append(("WAV s24 96 kHz", wav_file(1, 2, 96000, 24, payload), "wav",
+                lambda raw: pcm.pcm_to_float32(raw.view(-1, 3), PF.PCM_24),
+                payload, True))
+    # IMA-ADPCM: block align 2,048 stereo, legal headers, seeded nibbles
+    per_block = (ADPCM_BLOCK - 8) * 2 // 2
+    n_blocks = -(-frames // per_block)
+    blocks = rng.integers(0, 256, (n_blocks, ADPCM_BLOCK), dtype=np.uint8)
+    hdr = blocks[:, :8].reshape(n_blocks, 2, 4)
+    hdr[:, :, 2] = rng.integers(0, 89, (n_blocks, 2))
+    hdr[:, :, 3] = 0
+    payload = blocks.tobytes()
+
+    def adpcm_conv(raw):
+        nib, pr, st = adpcm.unpack_ima_blocks(raw, ADPCM_BLOCK, 2)
+        return adpcm._finalize(adpcm.decode_ima_nibbles(nib, pr, st), 2)
+
+    out.append(("WAV IMA-ADPCM", wav_file(0x11, 2, 44100, 4, payload,
+                                          ADPCM_BLOCK, fact=frames),
+                "wav", adpcm_conv, payload, True))
+    groups = -(-frames // 64)
+    payload = rand_bytes(groups * 2 * 34)
+
+    def ima4_conv(raw):
+        nib, pr, st = adpcm.unpack_ima4_packets(raw, 2)
+        return adpcm._finalize(adpcm.decode_ima4_nibbles(nib, pr, st), 2)
+
+    out.append(("AIFC ima4", aifc_file(b"ima4", 2, 16, payload, groups * 64),
+                "aifc", ima4_conv, payload, True))
+    payload = rand_bytes(2 * frames)
+    out.append(("AIFC ulaw", aifc_file(b"ulaw", 2, 16, payload, frames),
+                "aifc", aiff._ulaw_to_float, payload, True))
+    payload = rand_bytes(4 * frames)
+    out.append(("AIFC sowt", aifc_file(b"sowt", 2, 16, payload, frames),
+                "aifc", lambda raw: pcm.pcm_to_float32(raw.view(torch.int16),
+                                                       PF.PCM_16),
+                payload, True))
+    payload = rand_bytes(4 * frames)
+    out.append(("CAF lpcm s16 BE", caf_file(b"lpcm", 0, 4, 1, 2, 16, payload),
+                "caf", lambda raw: pcm.be_to_float32(raw, 16), payload, True))
+    return out
+
+
+def phase7_pcm(nqt, card, dev):
+    """PCM, IMA-ADPCM and the Apple/RIFF containers at 3.7 min a file:
+    load() on the card against the CPU, the host-to-device copy and the
+    device conversion timed apart, beside its byte bound."""
+    from libnyquist_torch.ops import pcm
+
+    log(f"phase 7: PCM / ADPCM containers, {PCM_SECONDS:.0f} s of stereo a "
+        f"file, load() on the card vs the CPU")
+    rng = np.random.default_rng(700)
+    t0 = time.perf_counter()
+    inputs = pcm_inputs(rng)
+    log(f"  {len(inputs)} files written in {time.perf_counter() - t0:.2f} s")
+    rows = []
+    for name, data, ext, conv, payload, exact in inputs:
+        nqt.load(data, extension=ext, device=dev)       # warm
+        t0 = time.perf_counter()
+        a = nqt.load(data, extension=ext, device=dev)
+        load_s = time.perf_counter() - t0
+        b = nqt.load(data, extension=ext, device="cpu")
+        check(a.sample_count == b.sample_count and a.sample_count > 0,
+              f"{name}: sample counts {a.sample_count} / {b.sample_count}")
+        d = float(np.abs(a.samples - b.samples).max())
+        if exact:
+            check(np.array_equal(a.samples, b.samples),
+                  f"{name}: card and CPU differ (max|d| {d})")
+        host = np.frombuffer(payload, np.uint8)
+        torch.cuda.synchronize()
+        h2d = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            raw = pcm.host_to_device(host, dev)
+            torch.cuda.synchronize()
+            h2d.append(time.perf_counter() - t0)
+        out = conv(raw)
+        check(out.numel() >= a.sample_count
+              and bool(torch.equal(out[: a.sample_count].cpu(),
+                                   torch.from_numpy(a.samples))),
+              f"{name}: the timed conversion is not load()'s")
+        conv_ms = cuda_ms(lambda: conv(raw), reps=5)
+        nbytes = host.nbytes + out.numel() * 4
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        audio_s = a.sample_count / a.channel_count / a.sample_rate
+        rows.append({"name": name, "MB": len(data) / 1e6,
+                     "audio_s": audio_s, "load_s": load_s,
+                     "h2d_ms": statistics.median(h2d) * 1e3,
+                     "convert_ms": conv_ms, "bound_ms": bound,
+                     "card_vs_cpu": d})
+        log(f"  {name}: {len(data) / 1e6:.1f} MB, load() {load_s:.3f} s "
+            f"(realtime x{audio_s / load_s:.0f}); copy to the card "
+            f"{statistics.median(h2d) * 1e3:.2f} ms; device conversion "
+            f"{conv_ms:.3f} ms, byte bound {bound:.3f} ms "
+            f"({nbytes / 1e6:.0f} MB); card vs CPU max|d| {d:.1e}")
+        del raw, out
+        if name == "WAV IMA-ADPCM":
+            per = (ADPCM_BLOCK - 8) // 2 * 2       # nibbles a channel
+            nb = min(64, a.sample_count // (2 * per))
+            blocks = host.reshape(-1, ADPCM_BLOCK)[:nb]
+            got = a.samples[: nb * per * 2].reshape(nb, per, 2)
+            for k, blk in enumerate(blocks):
+                for c in range(2):
+                    lo, hi = int(blk[4 * c]), int(blk[4 * c + 1])
+                    pred = ((lo | (hi << 8)) ^ 0x8000) - 0x8000
+                    words = blk[8:].reshape(-1, 2, 4)[:, c].reshape(-1)
+                    nib = np.stack([words & 15, words >> 4], 1).reshape(-1)
+                    ref = scalar_ima(nib, pred, int(blk[4 * c + 2]))
+                    want = ref.astype(np.float32) * np.float32(1.0 / 32767.0)
+                    check(np.array_equal(got[k, :, c], want),
+                          f"ADPCM block {k} channel {c} vs the scalar decoder")
+            log(f"  WAV IMA-ADPCM: the first {nb} blocks equal the scalar "
+                f"IMA decoder")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -1245,7 +1618,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     mp3 = phase4_mp3(nqt, card, dev)
     mpc = phase5_mpc(nqt, card, dev)
-    log(json.dumps({"serving": serve, "mp3": mp3, "mpc": mpc, "card": card}))
+    torch.cuda.empty_cache()
+    vorbis = phase6_vorbis(nqt, card, dev)
+    torch.cuda.empty_cache()
+    pcm_rows = phase7_pcm(nqt, card, dev)
+    log(json.dumps({"serving": serve, "mp3": mp3, "mpc": mpc,
+                    "vorbis": vorbis, "pcm": pcm_rows, "card": card}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": list(rows)}), flush=True)

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import struct
 from dataclasses import dataclass, field
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator, List, Optional
 
 
 @dataclass
@@ -148,3 +148,13 @@ def demux(data: bytes) -> Dict[int, LogicalStream]:
                 st._partial = bytearray()
                 st._partial_open = False
     return streams
+
+
+def first_stream_matching(
+    streams: Dict[int, LogicalStream], magic: bytes
+) -> Optional[LogicalStream]:
+    """The first logical stream whose first packet starts with ``magic``."""
+    for st in streams.values():
+        if st.packets and st.packets[0].data.startswith(magic):
+            return st
+    return None

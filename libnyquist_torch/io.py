@@ -2,30 +2,29 @@
 
 Equivalent of the reference's ``nqr::NyquistIO::Load`` (reference:
 src/Common.cpp:36-151) for the formats the port covers so far: Ogg Opus
-with CELT-only streams, MP3 (Layer I/II and Layer III) and Musepack (SV7
-and SV8). Other formats raise NotImplementedError naming the ROADMAP.md
-queue item that ports them.
+with CELT-only streams, Ogg Vorbis, MP3 (Layer I/II and Layer III),
+Musepack (SV7 and SV8), WAV (PCM and IMA-ADPCM), AIFF/AIFF-C and CAF.
+FLAC and WavPack raise NotImplementedError naming the ROADMAP.md queue
+item that ports them.
 """
 
 from __future__ import annotations
 
 import os
+import struct
 from typing import Optional, Union
 
 from .audio_data import AudioData, PCMFormat
 from .device import resolve_device
 from .errors import DecodeError, UnsupportedExtensionError
 
-_PCM_ITEM = "queue item 'PCM, ADPCM and the load facade'"
-_VORBIS_ITEM = "queue item 'Ogg Vorbis'"
 _LOSSLESS_ITEM = "queue item 'FLAC and WavPack'"
-_LATER = {
-    **dict.fromkeys(("wav", "wave", "aiff", "aif", "aifc", "caf"),
-                    _PCM_ITEM),
-    **dict.fromkeys(("flac", "oggflac", "wv"), _LOSSLESS_ITEM),
-    **dict.fromkeys(("ogg", "oga", "vorbis"), _VORBIS_ITEM),
+_LATER = dict.fromkeys(("flac", "oggflac", "wv"), _LOSSLESS_ITEM)
+_BYTES_PER_SAMPLE = {
+    PCMFormat.PCM_U8: 1, PCMFormat.PCM_S8: 1, PCMFormat.PCM_16: 2,
+    PCMFormat.PCM_24: 3, PCMFormat.PCM_32: 4, PCMFormat.PCM_64: 8,
+    PCMFormat.PCM_FLT: 4, PCMFormat.PCM_DBL: 8,
 }
-_BYTES_PER_SAMPLE = {PCMFormat.PCM_16: 2, PCMFormat.PCM_FLT: 4}
 
 
 def _ogg_subtype(data: bytes) -> Optional[str]:
@@ -72,12 +71,26 @@ def sniff_extension(data: bytes) -> Optional[str]:
 
 
 def _decoder(ext: str):
+    """The decoder registered for ``ext`` (reference registry:
+    Common.cpp:166-188), imported on first use."""
     if ext == "mp3":
         from .formats.mp3 import decode_mp3_buffer
         return decode_mp3_buffer
     if ext == "mpc":
         from .formats.musepack import decode_musepack_buffer
         return decode_musepack_buffer
+    if ext in ("ogg", "oga", "vorbis"):
+        from .formats.vorbis import decode_vorbis_buffer
+        return decode_vorbis_buffer
+    if ext in ("wav", "wave", "ambix"):
+        from .formats.wav import decode_wav_buffer
+        return decode_wav_buffer
+    if ext in ("aiff", "aif", "aifc"):
+        from .formats.aiff import decode_aiff_buffer
+        return decode_aiff_buffer
+    if ext == "caf":
+        from .formats.aiff import decode_caf_buffer
+        return decode_caf_buffer
     return None
 
 
@@ -112,25 +125,28 @@ def load(
         except (ValueError, IndexError) as e:
             raise DecodeError(
                 f"malformed opus stream: {type(e).__name__}: {e}") from e
-    elif sub is not None:
-        raise NotImplementedError(
-            f"Ogg {sub}: see ROADMAP.md, "
-            f"{_VORBIS_ITEM if sub == 'vorbis' else _LOSSLESS_ITEM}")
-    elif decode is not None:
+    elif sub == "flac":
+        raise NotImplementedError(f"Ogg FLAC: see ROADMAP.md, {_LOSSLESS_ITEM}")
+    else:
+        if sub == "vorbis":
+            decode = _decoder("vorbis")
+        if decode is None:
+            if ext in _LATER:
+                raise NotImplementedError(
+                    f"{ext} files: see ROADMAP.md, {_LATER[ext]}")
+            raise UnsupportedExtensionError(
+                f"no decoder for extension {ext!r}")
         try:
             decode(data, audio, dev)
-        except (ValueError, IndexError, KeyError, OverflowError) as e:
+        except (ValueError, IndexError, KeyError, OverflowError,
+                struct.error) as e:
             # malformed input tripped an internal path
             raise DecodeError(
                 f"malformed {ext} stream: {type(e).__name__}: {e}") from e
-    elif ext in _LATER:
-        raise NotImplementedError(
-            f"{ext} files: see ROADMAP.md, {_LATER[ext]}")
-    else:
-        raise UnsupportedExtensionError(f"no decoder for extension {ext!r}")
     if audio.sample_rate > 0 and audio.channel_count > 0:
         audio.length_seconds = (
             audio.sample_count / audio.channel_count / audio.sample_rate)
-    audio.frame_size = audio.channel_count * _BYTES_PER_SAMPLE.get(
-        audio.source_format, 4)
+    if not audio.frame_size:
+        audio.frame_size = audio.channel_count * _BYTES_PER_SAMPLE.get(
+            audio.source_format, 4)
     return audio

@@ -2,9 +2,11 @@
 
 * ``libcelthost.so`` (``lib()``): the CELT entropy decode (range
   decoder, bit allocation, PVQ index decode), the bits-only trace decode
-  with its leaf packer, and the Ogg/Opus packet scan;
+  with its leaf packer, the Ogg/Opus packet scan and the one-pass Ogg
+  packet collector the Vorbis decoder uses;
 * ``libcodechost.so`` (``codec_lib()``): the MP3 Layer III whole-stream
-  entropy decode and the Musepack SV7/SV8 frame reader.
+  entropy decode, the Musepack SV7/SV8 frame reader and the Vorbis
+  packet decode (floor 1, residues, coupling).
 
 Both are branchy byte-serial work that stays on the host in C
 (``libnyquist_torch/native/``), built with the system ``cc`` at first
@@ -25,7 +27,7 @@ _NATIVE_DIR = _PKG / "native"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("celt_bands.c", "ogg_opus.c", "replay_pack.c")
 _HEADERS = ("ecdec.h",)
-CODEC_SOURCES = ("mp3_stream.c", "mp3_huff.c", "mpc_frame.c")
+CODEC_SOURCES = ("mp3_stream.c", "mp3_huff.c", "mpc_frame.c", "vorbis_res.c")
 _LIB = None
 _CODEC_LIB = None
 _LOCK = threading.Lock()
@@ -142,6 +144,14 @@ def _bind(L: ctypes.CDLL) -> ctypes.CDLL:
         i32p, i32p, i32p,                       # fsz, ends, chs
         c_i64, i32p,                            # max_frames, info
     ]
+    L.ogg_collect_packets.restype = c_i64
+    L.ogg_collect_packets.argtypes = [
+        ctypes.c_char_p, c_i64,                 # data, len
+        ctypes.c_char_p, c_int,                 # magic, magic_len
+        ctypes.c_char_p, c_i64,                 # payload_out, cap
+        i64p, i64p, c_i64,                      # offs, lens, max_packets
+        i64p,                                   # info_out
+    ]
     return L
 
 
@@ -160,6 +170,7 @@ def _bind_codec(L: ctypes.CDLL) -> ctypes.CDLL:
     vp = ctypes.c_void_p
     i32p = ctypes.POINTER(ctypes.c_int32)
     i64p = ctypes.POINTER(ctypes.c_int64)
+    f32p = ctypes.POINTER(ctypes.c_float)
     # native/mp3_stream.c: table pointers, then the whole-stream decode
     L.mp3s_init_tables.restype = None
     L.mp3s_init_tables.argtypes = [
@@ -192,12 +203,54 @@ def _bind_codec(L: ctypes.CDLL) -> ctypes.CDLL:
         [ctypes.c_char_p, c_i64, i64p]          # buf, len, io
         + [c_int] * 4                           # n, key_first, max_band, ms
         + [i32p] * 15)                          # state planes, 4 snapshots
+    # native/vorbis_res.c: the codebook registry (luts, trees, vq tables)
+    # is the same nine pointers in every entry
+    books = [i32p, i64p, i32p,                  # luts, lut_off, lut_w
+             i32p, i64p, i32p,                  # trees, tree_off, maxlen
+             f32p, i64p, i32p]                  # vqs, vq_off, dims
+    L.vorbis_residue_decode.restype = None
+    L.vorbis_residue_decode.argtypes = [
+        ctypes.c_char_p, c_i64, i64p,           # data, nbytes, st [pos, eop]
+        *books,
+        c_int, c_i64, c_i64, c_i64,             # rtype, begin, end, psize
+        c_int, c_int,                           # classifications, classbook
+        i32p, ctypes.c_char_p,                  # books8, do_not_decode
+        c_i64, c_i64, f32p,                     # ch, n2, work
+    ]
+    L.vorbis_floor1_decode.restype = c_i64
+    L.vorbis_floor1_decode.argtypes = [
+        ctypes.c_char_p, c_i64, i64p,           # data, nbytes, st
+        i32p, i32p, i32p,                       # cfg, neighbors, sortidx
+        *books[:6],                             # luts and trees
+        f32p, c_i64, f32p,                      # fromdb, n2, curve_out
+    ]
+    stream_cfg = [
+        c_int, c_int, c_int, c_int,             # channels, bs0, bs1, mode_bits
+        i32p, c_int,                            # mode_cfg, nmodes
+        i32p, i32p, i32p, i32p,                 # map meta, mux, submap, coup
+        i32p, i32p, i32p, i64p,                 # floor cfgs, nbrs, sorts, off
+        f32p,                                   # fromdb
+        i32p, i32p,                             # res_meta, res_books8
+        *books,
+    ]
+    L.vorbis_packet_decode.restype = c_i64
+    L.vorbis_packet_decode.argtypes = [
+        ctypes.c_char_p, c_i64,                 # data, nbytes
+        *stream_cfg,
+        f32p, i32p,                             # specs, info
+    ]
+    L.vorbis_stream_decode.restype = c_i64
+    L.vorbis_stream_decode.argtypes = [
+        ctypes.c_char_p, i64p, i64p, c_i64,     # payload, poff, plen, n
+        *stream_cfg,
+        c_i64, f32p, i32p,                      # specs_cap, specs_out, info_out
+    ]
     return L
 
 
 def codec_lib() -> ctypes.CDLL:
-    """The bound MP3/Musepack host library, built on first call. Raises
-    on failure. Its table setters are called once by the format modules
+    """The bound MP3/Musepack/Vorbis host library, built on first call.
+    Raises on failure. Its table setters are called once by the format modules
     (``formats/mp3.py``, ``formats/musepack.py``), each under its lock."""
     global _CODEC_LIB
     with _LOCK:

@@ -19,9 +19,12 @@ into the layout ``run_synthesis_batched`` takes (rows ordered
 ``c*K + k``) and runs the step loop on it.
 
 The same batching serves MP3 (``synthesize_mp3_streams``: the IMDCT and
-QMF products of ``ops/mp3_synth.py`` over [S, G] granule batches) and
+QMF products of ``ops/mp3_synth.py`` over [S, G] granule batches),
 Musepack (``synthesize_mpc_streams``: one product and the 16-tap combine
-over [stream x channel] rows of requantized subband samples).
+over [stream x channel] rows of requantized subband samples) and Vorbis
+(``synthesize_vorbis_streams_mixed``: one IMDCT product per blocksize
+over [stream x channel] rows of staged spectra, the lap windows, and the
+overlap-add as two gathers planned on the host by ``vorbis_lap_plan``).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import torch
 from ..device import resolve_device
 from ..formats.opus.celt_host import COMBFILTER_MINPERIOD
 from ..formats import musepack
+from ..formats import vorbis
 from ..formats.opus.celt_tables import COMB_GAINS, mode48000
 from ..ops import celt_replay as replay_ops
 from ..ops import comb as comb_ops
@@ -526,3 +530,149 @@ def synthesize_mpc_streams(ys, device=None) -> torch.Tensor:
     dev = resolve_device(device)
     return musepack.synth_rows(torch.as_tensor(ys, dtype=torch.float32,
                                                device=dev))
+
+
+# --------------------------------------------------------------------------
+# Vorbis serving: batched IMDCT + window + lapping over streams x packets
+# (reference: libvorbis/src/mdct.c:397 mdct_backward, block.c lapping)
+# --------------------------------------------------------------------------
+@functools.lru_cache(maxsize=8)
+def _imdct_t(n: int, device: torch.device) -> torch.Tensor:
+    """The float32 [n/2, n] transpose of the float64-built IMDCT matrix."""
+    m = vorbis.imdct_matrix(n).astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(m.T)).to(device)
+
+
+def synthesize_vorbis_streams(specs, n: int, device=None) -> torch.Tensor:
+    """Batched uniform-blocksize Vorbis synthesis.
+
+    Args:
+      specs: [R, F, n//2] per-packet spectra (floor curve x residue, after
+        coupling) of R stream-channels with blocksize n on every packet,
+        NumPy or tensor.
+    Returns [R, (F-1) * n//2] pcm on the device (Vorbis emits from the
+    second packet; the first primes the lap cache): one product plus two
+    shifted windowed adds.
+    """
+    dev = resolve_device(device)
+    specs = torch.as_tensor(specs, dtype=torch.float32, device=dev)
+    R, F, n2 = specs.shape
+    if 2 * n2 != n:
+        raise ValueError(f"spectra of {n2} bins for blocksize {n}")
+    half = vorbis.vorbis_window(n2)
+    wfull = torch.from_numpy(
+        np.concatenate([half, half[::-1]]).astype(np.float32)).to(dev)
+    tw = torch.matmul(specs, _imdct_t(n, dev)) * wfull
+    return (tw[:, :-1, n2:] + tw[:, 1:, :n2]).reshape(R, -1)
+
+
+def vorbis_lap_plan(frames_meta, blocksizes) -> dict:
+    """The static lapping structure of a mixed-blocksize Vorbis packet
+    sequence (the serving signature), on the host.
+
+    Args:
+      frames_meta: per packet (n, blockflag, long_prev, long_next).
+      blocksizes: (bs0, bs1).
+    Returns dict with:
+      W [F, nmax] float32 — per-packet lap window, zero-padded;
+      idx_prev / idx_cur [out_len] int64 — gather indices into the
+        flattened windowed time-domain plane [F * nmax]: each output
+        sample sums at most one previous-packet tail and one
+        current-packet head value (-1: none, masked);
+      out_len, nmax, ns (the per-packet blocksizes).
+    """
+    F = len(frames_meta)
+    ns = [m[0] for m in frames_meta]
+    nmax = max(ns) if ns else 0
+    W = np.zeros((F, nmax), np.float32)
+    windows = {}
+    for f, (n, bf, lp, ln) in enumerate(frames_meta):
+        key = (n, bool(bf), bool(lp), bool(ln))
+        if key not in windows:
+            windows[key] = vorbis._lap_window(n, blocksizes, bf, lp, ln)
+        W[f, :n] = windows[key]
+
+    # the emission of the reference's packet loop, as index spans
+    out_len = 0
+    prev_n = 0
+    spans_prev = []   # (dst, frame, src, length): previous packet's tail
+    spans_cur = []    # the current packet's head
+    for f, n in enumerate(ns):
+        if f > 0:
+            L = prev_n // 4 + n // 4
+            spans_prev.append((out_len, f - 1, prev_n // 2,
+                               min(prev_n // 2, L)))
+            o = prev_n // 4 - n // 4
+            s0 = max(o, 0)
+            length = min(L - s0, n // 2 - (s0 - o))
+            if length > 0:
+                spans_cur.append((out_len + s0, f, s0 - o, length))
+            out_len += L
+        prev_n = n
+    idx_prev = np.full(out_len, -1, np.int64)
+    idx_cur = np.full(out_len, -1, np.int64)
+    for idx, spans in ((idx_prev, spans_prev), (idx_cur, spans_cur)):
+        for dst, f, src, ln in spans:
+            idx[dst : dst + ln] = f * nmax + src + np.arange(ln)
+    return dict(W=W, idx_prev=idx_prev, idx_cur=idx_cur, out_len=out_len,
+                nmax=nmax, ns=ns)
+
+
+def _vorbis_plan_tensors(plan: dict, dev: torch.device) -> dict:
+    """The plan's arrays on ``dev``, uploaded once and kept in the plan."""
+    cache = plan.setdefault("_device", {})
+    t = cache.get(dev)
+    if t is None:
+        ns = np.asarray(plan["ns"])
+
+        def up(a, dtype):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                   device=dev)
+
+        t = dict(
+            W=up(plan["W"], torch.float32),
+            groups=[(int(n), up(np.nonzero(ns == n)[0], torch.int64))
+                    for n in sorted(set(plan["ns"]))],
+            ip=up(np.maximum(plan["idx_prev"], 0), torch.int64),
+            ic=up(np.maximum(plan["idx_cur"], 0), torch.int64),
+            mp=up(plan["idx_prev"] >= 0, torch.float32),
+            mc=up(plan["idx_cur"] >= 0, torch.float32),
+        )
+        cache[dev] = t
+    return t
+
+
+def synthesize_vorbis_streams_mixed(specs_padded, plan: dict,
+                                    device=None) -> torch.Tensor:
+    """Batched mixed-blocksize Vorbis synthesis over R stream-channels.
+
+    Args:
+      specs_padded: [R, F, nmax//2] spectra zero-padded per packet, NumPy
+        or tensor.
+      plan: ``vorbis_lap_plan`` of the packet sequence the R rows share;
+        its arrays are uploaded on the first call for a device and kept
+        in the plan.
+    Returns [R, out_len] pcm on the device.
+
+    One product per distinct blocksize, written into the [R, F, nmax]
+    plane by ``index_copy_`` (no second plane-sized temporary), the lap
+    windows, then the overlap-add as two masked gathers with static
+    indices: no per-packet control flow on the device.
+    """
+    dev = resolve_device(device)
+    t = _vorbis_plan_tensors(plan, dev)
+    specs = torch.as_tensor(specs_padded, dtype=torch.float32, device=dev)
+    R, F, _ = specs.shape
+    nmax = plan["nmax"]
+    tw = torch.empty((R, F, nmax), dtype=torch.float32, device=dev)
+    for n, sel in t["groups"]:
+        td = torch.matmul(specs[:, :, : n // 2].index_select(1, sel),
+                          _imdct_t(n, dev))               # [R, F_n, n]
+        tw[:, :, :n].index_copy_(1, sel, td)
+        if n < nmax:
+            tw[:, :, n:].index_fill_(1, sel, 0.0)
+        del td
+    tw *= t["W"]
+    flat = tw.view(R, F * nmax)
+    return (flat.index_select(1, t["ip"]) * t["mp"]
+            + flat.index_select(1, t["ic"]) * t["mc"])

@@ -29,7 +29,8 @@ def test_port_modules_import_without_jax():
     mods = _port_modules()
     for name in ("ops.comb", "ops.rot", "ops.celt_replay",
                  "formats.opus.iy_split", "runtime.serving", "formats.mp3",
-                 "formats.musepack", "ops.mp3_synth"):
+                 "formats.musepack", "ops.mp3_synth", "formats.vorbis",
+                 "formats.wav", "formats.aiff", "ops.pcm", "ops.adpcm"):
         assert f"libnyquist_torch.{name}" in mods
     # Only what the port's imports add counts: an interpreter start-up hook
     # may load jax before any of them runs.
@@ -40,6 +41,27 @@ def test_port_modules_import_without_jax():
         "    importlib.import_module(m)\n"
         "bad = sorted(k for k in set(sys.modules) - before if k.split('.')[0]"
         " in ('jax', 'jaxlib', 'libnyquist_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_stream_writers_import_without_jax():
+    """The seeded stream writers the tests and the card run share import
+    NumPy only."""
+    code = (
+        "import importlib.util, sys\n"
+        "before = set(sys.modules)\n"
+        "for name in ('vorbis_stream', 'l3_stream'):\n"
+        "    spec = importlib.util.spec_from_file_location(\n"
+        "        name, f'tools/{name}.py')\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(k for k in set(sys.modules) - before if k.split('.')[0]"
+        " in ('jax', 'jaxlib', 'libnyquist_tpu', 'libnyquist_torch',"
+        " 'torch'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -74,7 +96,7 @@ def test_load_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 @pytest.mark.parametrize("name", [
-    "dsd_raw.wv", "floor0_mono8k.ogg", "kitty8_dithered.oga",
+    "dsd_raw.wv", "hybrid_stereo.wv", "kitty8_dithered.oga",
     "hybrid_mono.wv",
 ])
 def test_other_formats_name_their_roadmap_item(name):
