@@ -8,7 +8,8 @@ builds everything it runs from this checkout. Phases, in order; any
 failure exits non-zero before the result line:
 
 0. card name and power limit (nvidia-smi); build the native host
-   libraries (CELT, and MP3/Musepack), the CUDA kernels (csrc/comb.cu, csrc/rot.cu) and the
+   libraries (CELT, and the codecs: MP3, Musepack, Vorbis, FLAC,
+   WavPack), the CUDA kernels (csrc/comb.cu, csrc/rot.cu) and the
    shared-memory probe (tools/smem_round_trip.cu), one nvcc each, all
    started together; the host half of the serving batch: K = 8
    stereo streams of 11,100 frames of 20 ms (3.7 min each), stream k
@@ -84,6 +85,19 @@ failure exits non-zero before the result line:
    a scalar IMA decoder; per file the load() wall time, the host-to-device
    copy and the device conversion or scan by CUDA events beside its byte
    bound.
+8. FLAC and WavPack phase: K = 8 stereo FLAC streams of 3.7 min at
+   44.1 kHz, four 16-bit and four 24-bit, written by tools/flac_stream.py
+   in 8 worker processes, and K = 8 WavPack streams of 3.7 min written
+   by tools/wv_stream.py (int16 joint stereo, int24, float32 with the wvx
+   side stream, int32 info; two each); the host half of each format
+   (formats/flac.py and formats/wavpack.py decode_host) timed on one
+   core; per stream the device tail on the card against the CPU and
+   load() on the card against both, bit for bit (FLAC also against the
+   writer's samples); the Ogg FLAC fixture and the six WavPack fixtures
+   on the card against their goldens, exactly; the upload (host clock)
+   and the device tails (ops/lossless.py scale_int, normalize_float_bits,
+   dsd_decimate on the DSD fixtures and on 3.7 min of DSD64 cycled from
+   one) by CUDA events beside their byte bounds.
 Phases 4 to 6 print host seconds and host audio-seconds per second,
 device seconds and the device realtime factor, and the bounds reckoned
 from the shapes (float ops at the card's float32 peak outside the tensor
@@ -134,6 +148,11 @@ MPC_FRAMES = 8498                 # 3.7 min of 1,152-sample frames at 44.1 kHz
 VORBIS_SECONDS = 222.0            # 3.7 min a stream, as the other batches
 VORBIS_BLOCK_SEED = 5             # one block-size sequence for the batch
 PCM_SECONDS = 222.0
+LOSSLESS_SECONDS = 222.0          # phase 8's writer streams, 3.7 min each
+FLAC_BPS = (16, 16, 16, 16, 24, 24, 24, 24)
+WV_KINDS = ("int16_joint", "int24", "float32_wvx", "int32_info")
+WV_FIXTURES = ("hybrid_mono", "hybrid_shape", "hybrid_stereo", "dsd_fast",
+               "dsd_high", "dsd_raw")
 ADPCM_BLOCK = 2048                # WAV IMA-ADPCM block align, stereo
 PROBE_SRC = ROOT / "tools" / "smem_round_trip.cu"
 COMB_THREADS = 128                # threads of one row's block in csrc/comb.cu
@@ -1587,6 +1606,192 @@ def phase7_pcm(nqt, card, dev):
     return rows
 
 
+# --------------------------------------------------------------------------
+# phase 8: FLAC and WavPack
+# --------------------------------------------------------------------------
+def _flac_stream(job):
+    """One FLAC writer stream, (bytes, int samples); run in a worker."""
+    seed, seconds, bps = job
+    return load_tool("flac_stream").make_flac_stream(seed, seconds, bps=bps)
+
+
+def bits_equal(a: np.ndarray, b: np.ndarray) -> bool:
+    """Equal float32 arrays, compared as int32 (NaN payloads included)."""
+    return a.shape == b.shape and np.array_equal(a.view(np.int32),
+                                                 b.view(np.int32))
+
+
+def tail_row(name, n, fn, nbytes, card):
+    """One device-tail function timed by CUDA events beside its byte bound
+    (each input read once, each output written once)."""
+    ms = cuda_ms(fn, reps=5)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"  {name}: {n} samples in {ms:.3f} ms by CUDA events; byte bound "
+        f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s), {ms / bound:.1f}x"
+        f" on {card}")
+    return {"name": name, "samples": n, "ms": ms, "bound_ms": bound,
+            "bytes": nbytes}
+
+
+def lossless_batch(nqt, label, datas, decode_host, device_tail, ext, dev,
+                   card):
+    """K streams of one format: the host half timed on one core, then per
+    stream the device tail on the card against the CPU and load() on the
+    card against both. Returns (host results, dict of the batch)."""
+    t0 = time.perf_counter()
+    hosts = [decode_host(d) for d in datas]
+    host_s = time.perf_counter() - t0
+    outs = []
+    for d, h in zip(datas, hosts):
+        card_out = device_tail(h, dev).cpu().numpy()
+        check(bits_equal(card_out, device_tail(h, "cpu").numpy()),
+              f"{label}: the device tail on the card and the CPU differ")
+        a = nqt.load(d, extension=ext, device=dev)
+        check(bits_equal(a.samples, card_out),
+              f"{label}: load() on the card differs from its parts")
+        outs.append(a)
+    b = nqt.load(datas[0], extension=ext, device="cpu")
+    check(bits_equal(outs[0].samples, b.samples),
+          f"{label}: load() on the card and the CPU differ")
+    audio_s = sum(a.sample_count / a.channel_count / a.sample_rate
+                  for a in outs)
+    log(f"  {label}: {len(datas)} streams, {audio_s:.1f} s of audio, "
+        f"{sum(map(len, datas)) / 1e6:.1f} MB; host {host_s:.3f} s on one "
+        f"core = {audio_s / host_s:.1f} audio-s per s; card equals the CPU")
+    return hosts, {"K": len(datas), "audio_s": audio_s,
+                   "MB": sum(map(len, datas)) / 1e6, "host_s": host_s,
+                   "host_x": audio_s / host_s}
+
+
+def upload_ms(arr, dev):
+    """Median host-clock milliseconds of one copy of ``arr`` to the card."""
+    from libnyquist_torch.ops.pcm import host_to_device
+
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host_to_device(arr, dev)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
+
+
+def phase8_lossless(nqt, card, dev):
+    """FLAC and WavPack: writer streams of 3.7 min (FLAC against the
+    writer's samples), the fixtures against their goldens, the host half
+    timed on one core, the upload and the device tails beside their byte
+    bounds, every card result against the CPU bit for bit."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from libnyquist_torch.formats import flac, wavpack
+    from libnyquist_torch.ops import lossless
+    from libnyquist_torch.ops.pcm import host_to_device
+
+    K = K_STREAMS
+    t_phase = time.perf_counter()
+    log(f"phase 8: FLAC and WavPack, K={K} stereo writer streams each x "
+        f"{LOSSLESS_SECONDS:.0f} s at 44.1 kHz, and the fixtures")
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(
+            K, mp_context=multiprocessing.get_context("spawn")) as pool:
+        flacs = list(pool.map(_flac_stream, [
+            (800 + k, LOSSLESS_SECONDS, bps)
+            for k, bps in enumerate(FLAC_BPS)]))
+    fl_gen_s = time.perf_counter() - t0
+    log(f"  {K} FLAC streams ({'/'.join(map(str, sorted(set(FLAC_BPS))))}-bit"
+        f") written in {fl_gen_s:.2f} s by {K} processes")
+    hosts, fl = lossless_batch(
+        nqt, "FLAC", [d for d, _ in flacs], flac.decode_host,
+        lambda h, d: flac.device_tail(h[0], h[1]["bps"], d), "flac", dev,
+        card)
+    fl["gen_s"] = fl_gen_s
+    for (pcm, info), (_, want), bps in zip(hosts, flacs, FLAC_BPS):
+        check(info["bps"] == bps and np.array_equal(pcm, want),
+              "FLAC host decode vs the writer's samples")
+    log("  FLAC: every stream's int32 samples equal the writer's")
+    rows = []
+    for k in (0, K - 1):
+        pcm, info = hosts[k]
+        flat = np.ascontiguousarray(pcm).reshape(-1)
+        fl[f"upload_ms_{info['bps']}"] = upload_ms(flat, dev)
+        x = host_to_device(flat, dev)
+        rows.append(tail_row(f"scale_int FLAC {info['bps']}-bit", flat.size,
+                             lambda: lossless.scale_int(x, info["bps"]),
+                             flat.size * 8, card))
+        del x
+    log(f"  FLAC upload (host clock): {fl['upload_ms_16']:.2f} ms 16-bit, "
+        f"{fl['upload_ms_24']:.2f} ms 24-bit a stream")
+    del flacs, hosts
+
+    g = np.load(GOLDEN / "KittyPurr8_Stereo_Dithered_flac.npz")
+    a = nqt.load(str(FIXTURES / "kitty8_dithered.oga"), device=dev)
+    check(a.sample_count == int(g["count"]) and np.array_equal(a.samples,
+                                                              g["full"]),
+          "Ogg FLAC fixture vs its golden")
+    log("  Ogg FLAC: tests/fixtures/kitty8_dithered.oga equals its golden")
+
+    fixtures = {}
+    for name in WV_FIXTURES:
+        g = np.load(GOLDEN / f"{name}_wv.npz")
+        a = nqt.load(str(FIXTURES / f"{name}.wv"), device=dev)
+        check(a.sample_count == int(g["count"])
+              and a.sample_rate == int(g["rate"])
+              and np.array_equal(a.samples, g["full"]),
+              f"{name}.wv vs its golden")
+        fixtures[name] = a.sample_count
+    log(f"  WavPack fixtures equal their goldens: {', '.join(WV_FIXTURES)}")
+
+    make_wv = load_tool("wv_stream").make_wv_stream
+    t0 = time.perf_counter()
+    wvs = [make_wv(900 + k, LOSSLESS_SECONDS, WV_KINDS[k % len(WV_KINDS)])
+           for k in range(K)]
+    log(f"  {K} WavPack streams ({', '.join(WV_KINDS)}) written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    hosts, wv = lossless_batch(
+        nqt, "WavPack", wvs, wavpack.decode_host,
+        lambda h, d: wavpack.device_tail(*h, d), "wv", dev, card)
+    info, raw, norm = hosts[WV_KINDS.index("float32_wvx")]
+    wv["upload_ms_float"] = upload_ms(raw, dev)
+    x = host_to_device(raw, dev)
+    nt = wavpack.norm_on(norm, raw.size, dev)
+    rows.append(tail_row(
+        "normalize_float_bits WavPack float", raw.size,
+        lambda: lossless.normalize_float_bits(x, nt), raw.size * 8
+        + (0 if isinstance(norm, int) else raw.size * 4), card))
+    info, raw, norm = hosts[WV_KINDS.index("int16_joint")]
+    x = host_to_device(raw, dev)
+    rows.append(tail_row("scale_int WavPack 16-bit", raw.size,
+                         lambda: lossless.scale_int(x, info["bps"]),
+                         raw.size * 8, card))
+    del wvs, hosts, x, nt
+
+    for name in ("dsd_fast", "dsd_high", "dsd_raw"):
+        _, raw, _ = wavpack.decode_host((FIXTURES / f"{name}.wv").read_bytes())
+        x = host_to_device(raw, dev)
+        rows.append(tail_row(f"dsd_decimate {name}.wv", raw.size,
+                             lambda: lossless.dsd_decimate(x),
+                             raw.size * 5, card))
+    # 3.7 min of DSD64 stereo (352,800 bytes a second a channel), the
+    # decoded bytes of dsd_fast.wv cycled
+    _, raw, _ = wavpack.decode_host((FIXTURES / "dsd_fast.wv").read_bytes())
+    n = int(LOSSLESS_SECONDS * 352800)
+    big = np.ascontiguousarray(np.resize(raw, (n, raw.shape[1])))
+    x = host_to_device(big, dev)
+    check(bits_equal(lossless.dsd_decimate(x[:65536]).cpu().numpy(),
+                     lossless.dsd_decimate(torch.from_numpy(big[:65536]))
+                     .numpy()), "dsd_decimate on the card vs the CPU")
+    rows.append(tail_row("dsd_decimate 3.7 min DSD64", big.size,
+                         lambda: lossless.dsd_decimate(x), big.size * 5, card))
+    del x, big
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    log(f"  phase 8 took {phase_s:.1f} s")
+    return {"flac": fl, "wavpack": wv, "wv_fixtures": fixtures,
+            "tails": rows, "phase_s": phase_s, "card": card}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -1622,8 +1827,11 @@ def main() -> int:
     vorbis = phase6_vorbis(nqt, card, dev)
     torch.cuda.empty_cache()
     pcm_rows = phase7_pcm(nqt, card, dev)
+    torch.cuda.empty_cache()
+    lossless = phase8_lossless(nqt, card, dev)
     log(json.dumps({"serving": serve, "mp3": mp3, "mpc": mpc,
-                    "vorbis": vorbis, "pcm": pcm_rows, "card": card}))
+                    "vorbis": vorbis, "pcm": pcm_rows, "lossless": lossless,
+                    "card": card}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": list(rows)}), flush=True)

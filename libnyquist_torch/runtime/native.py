@@ -5,8 +5,11 @@
   with its leaf packer, the Ogg/Opus packet scan and the one-pass Ogg
   packet collector the Vorbis decoder uses;
 * ``libcodechost.so`` (``codec_lib()``): the MP3 Layer III whole-stream
-  entropy decode, the Musepack SV7/SV8 frame reader and the Vorbis
-  packet decode (floor 1, residues, coupling).
+  entropy decode, the Musepack SV7/SV8 frame reader, the Vorbis
+  packet decode (floor 1, residues, coupling), the whole-stream FLAC
+  frame decode and the WavPack entropy words, decorrelation passes
+  (scalar, and eight blocks at a time with AVX2), float restores and
+  DSD block decode.
 
 Both are branchy byte-serial work that stays on the host in C
 (``libnyquist_torch/native/``), built with the system ``cc`` at first
@@ -27,7 +30,8 @@ _NATIVE_DIR = _PKG / "native"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("celt_bands.c", "ogg_opus.c", "replay_pack.c")
 _HEADERS = ("ecdec.h",)
-CODEC_SOURCES = ("mp3_stream.c", "mp3_huff.c", "mpc_frame.c", "vorbis_res.c")
+CODEC_SOURCES = ("mp3_stream.c", "mp3_huff.c", "mpc_frame.c", "vorbis_res.c",
+                 "flac_stream.c", "wv_words.c", "wv_simd.c", "wv_dsd.c")
 _LIB = None
 _CODEC_LIB = None
 _LOCK = threading.Lock()
@@ -245,13 +249,86 @@ def _bind_codec(L: ctypes.CDLL) -> ctypes.CDLL:
         *stream_cfg,
         c_i64, f32p, i32p,                      # specs_cap, specs_out, info_out
     ]
+    # native/flac_stream.c
+    L.flac_decode_stream.restype = c_i64
+    L.flac_decode_stream.argtypes = [
+        ctypes.c_char_p, c_i64, c_int,          # data, nbytes, stream_bps
+        i32p, c_i64, c_i64,                     # out, cap_values, max_frames
+        i32p, i64p,                             # work, state[4]
+    ]
+    # native/wv_words.c: st is [holding_one, holding_zero, zeros_acc,
+    # values_written]; the words readers return the final bit position
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    c_u64 = ctypes.c_uint64
+    L.wv_words_lossless.restype = c_u64
+    L.wv_words_lossless.argtypes = [
+        ctypes.c_char_p, c_u64, c_u64,          # buf, limit_bits, pos
+        i32p, c_i64,                            # out, nvalues
+        u32p, u32p, c_int,                      # medians, st, mono
+    ]
+    L.wv_words_hybrid.restype = c_u64
+    L.wv_words_hybrid.argtypes = [
+        ctypes.c_char_p, c_u64, c_u64,          # buf, limit_bits, pos
+        i32p, c_i64,                            # out, nvalues
+        u32p, u32p, i32p, c_int,                # medians, st, hybrid, flags
+    ]
+    L.wv_decorr_mono.restype = None
+    L.wv_decorr_mono.argtypes = [
+        c_int, c_int, i32p,                     # term, delta, weight
+        i32p, i32p, c_i64,                      # samples_a, buf, nsamples
+    ]
+    L.wv_decorr_stereo.restype = None
+    L.wv_decorr_stereo.argtypes = [
+        c_int, c_int, i32p,                     # term, delta, weights[2]
+        i32p, i32p, i32p, c_i64,                # samples_a, _b, buf, n
+    ]
+    L.wv_decode_block.restype = c_u64
+    L.wv_decode_block.argtypes = [
+        ctypes.c_char_p, c_u64,                 # buf, limit_bits
+        i32p, c_i64,                            # out, nvalues
+        u32p, u32p,                             # medians, st
+        i32p, c_int, c_int,                     # hybrid state, flags, on
+        c_int, i32p, i32p, i32p,                # npasses, terms, deltas, w
+        i32p, i32p,                             # samples_a, samples_b
+        c_int, c_int, c_i64,                    # mono, joint, block_samples
+    ]
+    L.wv_float_values.restype = None
+    L.wv_float_values.argtypes = [
+        i32p, c_i64,                            # values, n
+        ctypes.c_char_p, c_u64,                 # wvx, wvx_bits
+        c_int, c_int, c_int,                    # flags, shift, max_exp
+        u32p,                                   # out_bits
+    ]
+    L.wv_float_nowvx.restype = None
+    L.wv_float_nowvx.argtypes = [
+        i32p, c_i64,                            # values, n
+        c_int, c_int, c_int,                    # flags, shift, max_exp
+        u32p,                                   # out_bits
+    ]
+    # native/wv_simd.c: 8 blocks' lanes; returns 0 when the CPU lacks
+    # AVX2 or a term is out of range (the caller runs the scalar passes)
+    L.wv_decorr_simd8.restype = c_int
+    L.wv_decorr_simd8.argtypes = [
+        c_int, i32p, i32p, i32p,                # npasses, terms, deltas, w
+        i32p, i32p,                             # samples_a, samples_b
+        ctypes.POINTER(vp), c_i64,              # lane buffers, nsamples
+        c_int, c_int,                           # mono, joint
+    ]
+    # native/wv_dsd.c
+    L.wv_dsd_decode.restype = c_i64
+    L.wv_dsd_decode.argtypes = [
+        ctypes.c_char_p, c_i64, c_int, c_int,   # data, len, mode, stereo
+        c_i64, u8p,                             # nframes, out
+    ]
     return L
 
 
 def codec_lib() -> ctypes.CDLL:
-    """The bound MP3/Musepack/Vorbis host library, built on first call.
-    Raises on failure. Its table setters are called once by the format modules
-    (``formats/mp3.py``, ``formats/musepack.py``), each under its lock."""
+    """The bound MP3/Musepack/Vorbis/FLAC/WavPack host library, built on
+    first call. Raises on failure. Its table setters are called once by
+    the format modules (``formats/mp3.py``, ``formats/musepack.py``),
+    each under its lock."""
     global _CODEC_LIB
     with _LOCK:
         if _CODEC_LIB is None:
