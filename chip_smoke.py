@@ -98,6 +98,23 @@ failure exits non-zero before the result line:
    and the device tails (ops/lossless.py scale_int, normalize_float_bits,
    dsd_decimate on the DSD fixtures and on 3.7 min of DSD64 cycled from
    one) by CUDA events beside their byte bounds.
+9. Opus general path phase: K = 8 Ogg Opus streams of 3,000 packets
+   (60 s of 20 ms packets; the mono streams' 10 ms cases make them
+   shorter) cut from the golden libopus packets by tools/opus_stream.py:
+   streams 0-3 stereo cycling cases (9, 12, 0, 13) (SILK, hybrid, CELT,
+   CELT), 4-7 mono cycling (8, 11, 2, 14, 17), each from a different
+   case; streams 2 and 6 lose 2 % of their pages, stream 3 is two chained
+   links; and a family-1 file of a SILK and a hybrid stream. load() on
+   the card against the port on the CPU (8 worker processes; 1e-5 of
+   max(|ref|, 1)), each stream's first case against libopus (1e-4), the
+   golden SILK and hybrid cases as files against libopus (1e-4), the
+   reference's SILK concealment (opus_plc.bin) bit for bit, and a
+   malformed-input pass (truncations and byte flips: a NyquistError or
+   the CPU's samples, then a valid load() again). K1's launches are
+   counted from 0 over the streams' load(). Per stream: host seconds
+   outside the synthesis and mix calls, their device span by CUDA
+   events, flushes, synthesize_segment calls, K1 launches, the realtime
+   factor of load().
 Phases 4 to 6 print host seconds and host audio-seconds per second,
 device seconds and the device realtime factor, and the bounds reckoned
 from the shapes (float ops at the card's float32 peak outside the tensor
@@ -154,6 +171,7 @@ WV_KINDS = ("int16_joint", "int24", "float32_wvx", "int32_info")
 WV_FIXTURES = ("hybrid_mono", "hybrid_shape", "hybrid_stereo", "dsd_fast",
                "dsd_high", "dsd_raw")
 ADPCM_BLOCK = 2048                # WAV IMA-ADPCM block align, stereo
+OPUS_GENERAL_PACKETS = 3000       # phase 9: 60 s of 20 ms packets a stream
 PROBE_SRC = ROOT / "tools" / "smem_round_trip.cu"
 COMB_THREADS = 128                # threads of one row's block in csrc/comb.cu
 
@@ -1792,6 +1810,317 @@ def phase8_lossless(nqt, card, dev):
             "tails": rows, "phase_s": phase_s, "card": card}
 
 
+# --------------------------------------------------------------------------
+# phase 9: the Opus general path
+# --------------------------------------------------------------------------
+class HistoryTap:
+    """Pitch concealment reads a CELT state's synthesis history on the
+    host (``CeltLane.history``), and its LPC synthesis filter amplifies
+    rounding differences in that history many times over. While on, this
+    records each history the card hands over, or, given such a record,
+    feeds it to a CPU decode in the same order, after checking that the
+    CPU's own history equals it within 1e-5 of max(|h|, 1): the CPU
+    reference then conceals from the same inputs as the card, and the
+    comparison holds the device work alone."""
+
+    def __init__(self, replay=None):
+        from libnyquist_torch.runtime import opus_pipeline
+
+        self.lane = opus_pipeline.CeltLane
+        self.orig = self.lane.history
+        self.record, self.replay = [], replay
+        self.worst = 0.0
+        tap = self
+
+        def history(lane):
+            fresh = lane.host is None
+            mem, pre = tap.orig(lane)
+            if not fresh:
+                return mem, pre
+            if tap.replay is None:
+                tap.record.append((mem.copy(), pre.copy()))
+                return mem, pre
+            rmem, rpre = tap.replay[len(tap.record)]
+            tap.record.append(None)
+            d = float(np.abs(mem - rmem).max(initial=0.0)) / max(
+                1.0, float(np.abs(rmem).max(initial=0.0)))
+            tap.worst = max(tap.worst, d)
+            check(mem.shape == rmem.shape and d <= 1e-5,
+                  f"concealment history: CPU vs card {d}")
+            return rmem.copy(), rpre.copy()
+
+        self.lane.history = history
+
+    def close(self):
+        self.lane.history = self.orig
+
+
+def _opus_cpu_load(job):
+    """load() of one Ogg Opus file on the CPU, one thread, concealing from
+    the card's histories; run in a worker. Returns (samples, channels,
+    seconds, worst history difference)."""
+    data, histories = job
+    sys.path.insert(0, str(ROOT))
+    torch.set_num_threads(1)
+    import libnyquist_torch as nqt
+
+    tap = HistoryTap(histories)
+    t0 = time.perf_counter()
+    a = nqt.load(data, extension="opus", device="cpu")
+    dt = time.perf_counter() - t0
+    tap.close()
+    return a.samples, a.channel_count, dt, tap.worst
+
+
+class GeneralPathMeter:
+    """Counts and times the general path's device calls while it is on:
+    lane synthesis passes with frames (flushes), synthesize_segment calls
+    and mix passes, each wrapped in a pair of CUDA events (device span)
+    and the host clock (time the host spends inside them)."""
+
+    def __init__(self):
+        from libnyquist_torch.runtime import opus_pipeline
+
+        self.pipe = opus_pipeline
+        self.orig = (opus_pipeline.CeltLane.synthesize,
+                     opus_pipeline.synthesize_segment,
+                     opus_pipeline.mix_on_device)
+        self.reset()
+        meter = self
+        synth, segment, mix = self.orig
+
+        def timed(fn, key):
+            def run(*a, **k):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                e0.record()
+                out = fn(*a, **k)
+                e1.record()
+                meter.events.append((e0, e1))
+                meter.inside_s += time.perf_counter() - t0
+                meter.n[key] += 1
+                return out
+            return run
+
+        def lane_synth(lane):
+            if not lane.frames:
+                return synth(lane)
+            return timed(synth, "flushes")(lane)
+
+        def seg(*a, **k):
+            meter.n["segments"] += 1
+            return segment(*a, **k)
+
+        opus_pipeline.CeltLane.synthesize = lane_synth
+        opus_pipeline.synthesize_segment = seg
+        opus_pipeline.mix_on_device = timed(mix, "mixes")
+
+    def reset(self):
+        self.events, self.inside_s = [], 0.0
+        self.n = {"flushes": 0, "segments": 0, "mixes": 0}
+
+    def device_ms(self):
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+    def close(self):
+        (self.pipe.CeltLane.synthesize, self.pipe.synthesize_segment,
+         self.pipe.mix_on_device) = self.orig
+
+
+def phase9_opus_general(nqt, comb, card, dev):
+    """The Opus general path at full width: K = 8 Ogg Opus streams of
+    OPUS_GENERAL_PACKETS packets cut from the golden libopus packets
+    (tools/opus_stream.py: SILK, hybrid and CELT cases in turn, two
+    streams losing 2 % of their pages, one of two chained links) and a
+    family-1 SILK + hybrid file through load() on the card, each against
+    the port on the CPU and its first case against libopus; the golden
+    SILK and hybrid cases and the reference's SILK concealment on the
+    card; a malformed-input pass. Per stream: host seconds, device span
+    by CUDA events, flushes, synthesize_segment calls, K1 launches, the
+    realtime factor."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from libnyquist_torch.errors import NyquistError
+    from libnyquist_torch.formats.opus.decoder import OpusDecoder
+
+    t_phase = time.perf_counter()
+    K = K_STREAMS
+    os_ = load_tool("opus_stream")
+    cases = os_.read_cases()
+    log(f"phase 9: the Opus general path, K={K} streams x "
+        f"{OPUS_GENERAL_PACKETS} packets and a SILK + hybrid multistream "
+        f"file")
+    t0 = time.perf_counter()
+    made = [os_.make_opus_stream(k, OPUS_GENERAL_PACKETS, cases)
+            for k in range(K)]
+    files = [d for d, _ in made] + [os_.make_opus_multistream(
+        OPUS_GENERAL_PACKETS, cases=cases)]
+    log(f"  {len(files)} files ({sum(map(len, files)) / 1e6:.2f} MB) "
+        f"written in {time.perf_counter() - t0:.2f} s")
+    meter = GeneralPathMeter()
+    nqt.load(files[0], extension="opus", device=dev)    # warm-up
+    meter.reset()
+    # the general path: counts to 0 just before, read just after
+    comb.comb_filter_cuda.launches = 0
+    per = []
+    outs = []
+    histories = []
+    for k, data in enumerate(files):
+        before = comb.comb_filter_cuda.launches
+        meter.reset()
+        tap = HistoryTap()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a = nqt.load(data, extension="opus", device=dev)
+        wall = time.perf_counter() - t0
+        tap.close()
+        histories.append(tap.record)
+        row = {"stream": k if k < K else "multistream",
+               "channels": a.channel_count,
+               "audio_s": a.sample_count / a.channel_count / 48000.0,
+               "wall_s": wall, "host_s": wall - meter.inside_s,
+               "device_ms": meter.device_ms(),
+               "k1_launches": comb.comb_filter_cuda.launches - before,
+               **meter.n}
+        row["realtime_x"] = row["audio_s"] / wall
+        per.append(row)
+        outs.append(a)
+    launches = comb.comb_filter_cuda.launches
+    meter.close()
+    check(launches > 0, "the general path launched no comb kernel")
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(
+            K, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu = list(pool.map(_opus_cpu_load, zip(files, histories)))
+    log(f"  the port on the CPU (references): {len(files)} files in "
+        f"{time.perf_counter() - t0:.1f} s by {K} processes, "
+        f"{sum(c[2] for c in cpu):.1f} s of CPU time; "
+        f"{sum(map(len, histories))} concealment histories taken from the "
+        f"card, the CPU's own within {max(c[3] for c in cpu):.2e} of them")
+
+    for k, (a, (ref, ch, cpu_s, _)) in enumerate(zip(outs, cpu)):
+        row = per[k]
+        check(a.channel_count == ch and a.samples.shape == ref.shape,
+              f"general stream {k}: card and CPU shapes differ")
+        check(bool(np.isfinite(a.samples).all()),
+              f"general stream {k}: non-finite samples")
+        scale = max(1.0, float(np.abs(ref).max()))
+        err = float(np.abs(a.samples - ref).max())
+        check(err <= 1e-5 * scale, f"general stream {k}: card vs CPU {err}")
+        row["err_vs_cpu"] = err
+        row["cpu_s"] = cpu_s
+        msg = ""
+        if k < K:
+            info = made[k][1]
+            c = cases[info["first_case"]]
+            want = c["pcm"][os_.PRE_SKIP * ch:]
+            e1 = float(np.abs(a.samples[: want.size] - want).max())
+            check(e1 < 1e-4, f"general stream {k}: first case "
+                  f"{info['first_case']} vs libopus {e1}")
+            row["first_case"] = info["first_case"]
+            row["err_first_case_vs_libopus"] = e1
+            row["lost_pages"] = len(info["lost_pages"])
+            row["links"] = info["links"]
+            msg = (f" first case {info['first_case']} vs libopus {e1:.2e};"
+                   f" {len(info['lost_pages'])} pages lost, "
+                   f"{info['links']} link(s);")
+        log(f"  stream {row['stream']} ({ch} ch, {row['audio_s']:.1f} s):"
+            f"{msg} host {row['host_s']:.3f} s on one core, device span "
+            f"{row['device_ms']:.1f} ms by CUDA events, wall "
+            f"{row['wall_s']:.3f} s = realtime x{row['realtime_x']:.1f}; "
+            f"{row['flushes']} flushes, {row['segments']} synthesize_segment"
+            f" calls, {row['k1_launches']} K1 launches, {row['mixes']} mixes;"
+            f" card vs CPU {err:.2e} on {card}")
+
+    # the golden SILK and hybrid cases as single-case files
+    for idx in (8, 9, 10, 14, 15, 16, 11, 12, 17):
+        c = cases[idx]
+        a = nqt.load(os_.make_case_file(idx, cases), extension="opus",
+                     device=dev)
+        want = c["pcm"][os_.PRE_SKIP * c["ch"]:]
+        check(a.samples.shape == want.shape, f"case file {idx} length")
+        e = float(np.abs(a.samples - want).max())
+        check(e < 1e-4, f"case file {idx} vs libopus {e}")
+    log("  golden SILK cases 8, 9, 10, 14, 15, 16 and hybrid 11, 12, 17 as "
+        "files: within 1e-4 of libopus")
+
+    # the reference's own SILK concealment, bit for bit
+    blob = (GOLDEN / "opus_plc.bin").read_bytes()
+    (nplc,) = struct.unpack_from("<i", blob, 0)
+    p = 4
+    for _ in range(nplc):
+        ci, ch, npk, _ = struct.unpack_from("<4i", blob, p)
+        p += 16
+        lost = np.frombuffer(blob, np.uint8, npk, p)
+        p += npk
+        (total,) = struct.unpack_from("<q", blob, p)
+        p += 8
+        ref = np.frombuffer(blob, np.float32, total, p)
+        p += total * 4
+        d = OpusDecoder(ch, device=dev)
+        for i in range(npk):
+            d.push_packet(None if lost[i] else cases[ci]["packets"][i])
+        got = d.flush().cpu().numpy().reshape(-1)
+        check(np.array_equal(got, ref), f"opus_plc.bin case {ci} on the card")
+    log(f"  opus_plc.bin: {nplc} lossy SILK decodes on the card equal the "
+        f"reference's concealment bit for bit")
+
+    # malformed input: every mutation raises a NyquistError or equals the
+    # CPU, and the card still decodes afterwards
+    rng = np.random.default_rng(9)
+    small = [os_.make_opus_stream(k, 120, cases)[0] for k in (1, 2, 5)]
+    small.append(os_.make_opus_multistream(60, cases=cases))
+    n_raised = n_equal = 0
+    for data in small:
+        muts = [data[: int(len(data) * f)] for f in (0.15, 0.5, 0.85)]
+        muts.append(data[:40])                  # inside the OpusHead page
+        for at in (37, 46):                     # channels, mapping family
+            b = bytearray(data)
+            b[at] ^= 0x7F
+            muts.append(bytes(b))
+        for _ in range(4):
+            b = bytearray(data)
+            for pos in rng.integers(120, len(b), 3):
+                b[pos] ^= int(rng.integers(1, 256))
+            muts.append(bytes(b))
+        for m in muts:
+            tap = HistoryTap()
+            try:
+                a = nqt.load(m, extension="opus", device=dev)
+            except NyquistError:
+                n_raised += 1
+                continue
+            finally:
+                tap.close()
+            tap = HistoryTap(tap.record)
+            r = nqt.load(m, extension="opus", device="cpu")
+            tap.close()
+            check(a.samples.shape == r.samples.shape,
+                  "malformed input: card and CPU lengths differ")
+            if r.samples.size:
+                scale = max(1.0, float(np.abs(r.samples).max()))
+                check(float(np.abs(a.samples - r.samples).max())
+                      <= 1e-5 * scale, "malformed input: card and CPU differ")
+            n_equal += 1
+    a = nqt.load(files[0], extension="opus", device=dev)
+    ref = cpu[0][0]
+    check(a.samples.shape == ref.shape and float(np.abs(
+        a.samples - ref).max()) <= 1e-5 * max(1.0, float(np.abs(ref).max())),
+        "the card decodes differently after the malformed pass")
+    log(f"  malformed input: {n_raised + n_equal} truncations and byte "
+        f"flips, {n_raised} raised a NyquistError, {n_equal} equal the "
+        f"CPU; a valid load() after them equals the CPU")
+    phase_s = time.perf_counter() - t_phase
+    log(f"  phase 9 took {phase_s:.1f} s; K1 launches in the general path "
+        f"{launches}")
+    return {"streams": per, "k1_launches": launches,
+            "malformed": {"raised": n_raised, "equal_cpu": n_equal},
+            "phase_s": phase_s, "card": card}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -1829,9 +2158,14 @@ def main() -> int:
     pcm_rows = phase7_pcm(nqt, card, dev)
     torch.cuda.empty_cache()
     lossless = phase8_lossless(nqt, card, dev)
+    torch.cuda.empty_cache()
+    general = phase9_opus_general(nqt, comb, card, dev)
+    for row in rows:
+        if row["name"] == "comb_filter":
+            row["launches_opus_general"] = general["k1_launches"]
     log(json.dumps({"serving": serve, "mp3": mp3, "mpc": mpc,
                     "vorbis": vorbis, "pcm": pcm_rows, "lossless": lossless,
-                    "card": card}))
+                    "opus_general": general, "card": card}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": list(rows)}), flush=True)

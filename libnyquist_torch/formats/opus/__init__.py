@@ -1,5 +1,5 @@
-"""Ogg Opus decoding for CELT-only streams: container, multistream
-split, native host decode, device synthesis, trimming.
+"""Ogg Opus decoding: container, multistream split, host decode, device
+synthesis, trimming.
 
 Equivalent of the reference's OpusDecoder glue + opusfile slice
 (reference: src/OpusDecoder.cpp:44-122, opusfile op_read_float /
@@ -7,16 +7,24 @@ op_pcm_total) and the multistream channel mapping
 (libopus/src/opus_multistream_decoder.c:184). Output: float64
 [samples, channels] at 48 kHz.
 
-The port covers CELT-only streams: single-stream files (the native scan
-route for mapping family 0, the demux route for other families) and
-family-1 multistream files whose elementary streams share one
-frame-size sequence. Everything else raises NotImplementedError naming
-the ROADMAP.md queue item that covers it.
+Routes, in the reference package's order:
 
-Two host halves feed the device: the full native decode to spectra
-(``decode_celt_raw``, what ``load()`` uses) and the bits-only trace with
-its replay arrays (``trace_celt_packets`` / ``trace_celt_ogg``, the
-serving path: the device replays the PVQ value plane, ops/celt_replay.py).
+* CELT-only files of one stream without lost pages: the native scan and
+  one native whole-stream decode (mapping family 0), or the demux and the
+  same decode (other families), then one device synthesis;
+* family-1 multistream CELT-only files whose elementary streams share one
+  frame-size sequence: the same per stream, then the mapping;
+* everything else (SILK, hybrid, mode switches, lost pages): the general
+  path, ``OpusMultistreamDecoder`` over the per-packet ``OpusDecoder``
+  (``decoder.py``): host entropy decode, CELT synthesis and the
+  output mix on the card at the stream's end. Lost pages conceal as many
+  samples as the granule jump says (capped at 10 s). Chained files decode
+  link by link.
+
+Two host halves feed the serving path, which stays CELT-only: the full
+native decode to spectra (``decode_celt_raw``) and the bits-only trace
+with its replay arrays (``trace_celt_packets`` / ``trace_celt_ogg``: the
+device replays the PVQ value plane, ops/celt_replay.py).
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from ...audio_data import AudioData, PCMFormat
 from ...device import resolve_device
 from ...errors import DecodeError
 from .. import ogg
+from .decoder import OpusDecoder
 from .celt_host import (
     CeltDecoderState,
     _raw_to_infos,
@@ -43,9 +52,11 @@ from .celt_host import (
 )
 from .iy_split import celt_trace_stream_arrays, trace_frames
 from .packet import MODE_CELT_ONLY, _endband_for_bandwidth, parse_packet
+from .repacketizer import Repacketizer, packet_pad, packet_unpad  # noqa: F401
 
-GENERAL_PATH = ("SILK, hybrid and lost-packet Opus decoding: see "
-                "ROADMAP.md, queue item 'Opus general path'")
+CELT_ONLY = ("the serving trace and the raw CELT decode take CELT-only "
+             "packets, as the reference's do (ROADMAP.md, faults: kept); "
+             "decode SILK and hybrid with OpusDecoder or load()")
 
 
 @dataclass
@@ -94,9 +105,66 @@ def parse_opus_head(data: bytes) -> OpusHead:
     )
 
 
+def _map_channels(head: OpusHead, outs, n: int, device) -> torch.Tensor:
+    """Elementary streams' [n, ch_s] outputs -> the head's channels."""
+    result = torch.zeros(n, head.channels, device=device)
+    for c, m in enumerate(head.mapping):
+        if m == 255:
+            continue
+        if m < 2 * head.coupled_count:
+            result[:, c] = outs[m >> 1][:n, m & 1]
+        else:
+            result[:, c] = outs[
+                head.coupled_count + (m - 2 * head.coupled_count)][:n, 0]
+    return result
+
+
 class OpusMultistreamDecoder:
-    """Multistream packet framing (reference:
-    opus_multistream_decoder.c:184-404); the port keeps the split only."""
+    """N elementary streams -> mapped output channels (reference:
+    opus_multistream_decoder.c:184-404), on ``device``.
+
+    ``push_packet`` splits a packet (self-delimited framing for all but
+    the last stream) and queues each part on its stream's
+    ``OpusDecoder``; ``flush`` mixes every stream on the card and maps
+    the channels; ``decode_packet`` does both."""
+
+    def __init__(self, head: OpusHead, device=None):
+        self.head = head
+        self.device = resolve_device(device)
+        self.decoders = []
+        for s in range(head.stream_count):
+            ch = 2 if s < head.coupled_count else 1
+            dec = OpusDecoder(ch, device=self.device)
+            dec.decode_gain = head.output_gain_q8
+            self.decoders.append(dec)
+
+    def push_packet(self, data) -> int:
+        head = self.head
+        if data is None:
+            ns = [d.push_packet(None) for d in self.decoders]
+        else:
+            parts = []
+            pos = 0
+            for s in range(head.stream_count):
+                if s == head.stream_count - 1:
+                    seg = data[pos:]
+                    pos = len(data)
+                else:
+                    seg, pos = self._undelimit(data, pos)
+                parts.append(seg)
+            ns = [self.decoders[s].push_packet(parts[s])
+                  for s in range(head.stream_count)]
+        if any(n != ns[0] for n in ns):
+            raise DecodeError("stream length mismatch in multistream")
+        return ns[0]
+
+    def flush(self) -> torch.Tensor:
+        outs = [d.flush() for d in self.decoders]
+        return _map_channels(self.head, outs, outs[0].shape[0], self.device)
+
+    def decode_packet(self, data) -> torch.Tensor:
+        self.push_packet(data)
+        return self.flush()
 
     @staticmethod
     def _undelimit(data: bytes, pos: int):
@@ -201,7 +269,7 @@ def decode_celt_raw(packets, channels: int):
     pf_pitch, pf_gain, pf_tapset, silence)."""
     parsed = [parse_packet(p) for p in packets]
     if any(pp.mode != MODE_CELT_ONLY for pp in parsed):
-        raise NotImplementedError(GENERAL_PATH)
+        raise NotImplementedError(CELT_ONLY)
     return celt_decode_stream_raw(
         CeltDecoderState(channels=channels), *_celt_frame_feed(parsed))
 
@@ -227,7 +295,7 @@ def trace_celt_packets(packets, channels: int):
     Returns (CeltTrace, arrs, static_key, audio_seconds)."""
     parsed = [parse_packet(p) for p in packets]
     if any(pp.mode != MODE_CELT_ONLY for pp in parsed):
-        raise NotImplementedError(GENERAL_PATH)
+        raise NotImplementedError(CELT_ONLY)
     tr = trace_frames(CeltDecoderState(channels=channels),
                       *_celt_frame_feed(parsed), **_SERVING_TRACE)
     if tr is None:
@@ -241,7 +309,7 @@ def trace_celt_ogg(data: bytes):
     NotImplementedError for what the scan declines."""
     scan = celt_scan_ogg_native(data)
     if scan is None:
-        raise NotImplementedError(GENERAL_PATH)
+        raise NotImplementedError(CELT_ONLY)
     payload, offs, lens, fsz, ends, chs, info = scan
     pay_p = payload.ctypes.data_as(ctypes.c_char_p)
     tr = celt_trace_stream_arrays(
@@ -347,17 +415,9 @@ def _decode_celt_multistream_pipeline(st, head, device):
         outs.append(synthesize_stream(infos, ch, device=device))
 
     n = min(o.shape[0] for o in outs)
-    outs = [o[:n].cpu().numpy().astype(np.float64) for o in outs]
-    result = np.zeros((n, head.channels))
-    for c, m in enumerate(head.mapping):
-        if m == 255:
-            continue
-        if m < 2 * head.coupled_count:
-            result[:, c] = outs[m >> 1][:, m & 1]
-        else:
-            result[:, c] = outs[
-                head.coupled_count + (m - 2 * head.coupled_count)][:, 0]
-    return _apply_gain(result, head.output_gain_q8)
+    result = _map_channels(head, outs, n, device)
+    return _apply_gain(result.cpu().numpy().astype(np.float64),
+                       head.output_gain_q8)
 
 
 def _decode_via_native_scan(data: bytes, device):
@@ -399,24 +459,93 @@ def _decode_via_native_scan(data: bytes, device):
 
 
 def decode_ogg_opus(data: bytes, device=None):
-    """Ogg Opus decode -> (float64 [n, channels], head) for CELT-only
-    files of one link."""
+    """Ogg Opus decode -> (float64 [n, channels], head).
+
+    Chained files (sequential links, each its own serial and OpusHead)
+    decode link by link and concatenate, like opusfile's op_read loop
+    across links; a later link that fails or changes the channel count
+    ends the decode there."""
     dev = resolve_device(device)
     streams = ogg.demux(data)
     links = [s for s in streams.values()
              if s.packets and s.packets[0].data.startswith(b"OpusHead")]
     if len(links) > 1:
-        raise NotImplementedError(
-            "chained Ogg Opus files: see ROADMAP.md, queue item "
-            "'Opus general path'")
+        first, head = _decode_one_link(data, links[0], dev)
+        chunks = [first]
+        for link in links[1:]:
+            try:
+                pcm, head_l = _decode_one_link(None, link, dev)
+            except DecodeError:
+                break
+            if head_l.channels != head.channels:
+                break
+            chunks.append(pcm)
+        return np.concatenate(chunks, axis=0), head
     return _decode_one_link(data, links[0] if links else None, dev)
 
 
+def decode_general(st, head: OpusHead, device):
+    """The general path over one link: every packet through
+    ``OpusMultistreamDecoder`` on ``device``, lost pages concealed for
+    the granule jump (capped at 10 s), one flush at the end. Returns the
+    untrimmed [n, channels] float32 tensor on the device."""
+    ms = OpusMultistreamDecoder(head, device)
+    keep = []                 # (start, length) runs of the pushed samples
+    total = 0
+
+    def push(data, limit=None):
+        nonlocal total
+        n = ms.push_packet(data)
+        k = n if limit is None else max(0, min(n, limit))
+        if keep and keep[-1][0] + keep[-1][1] == total and k:
+            keep[-1] = (keep[-1][0], keep[-1][1] + k)
+        elif k:
+            keep.append((total, k))
+        total += n
+        return n
+
+    last_gran = None
+    for pkt in st.packets[2:]:
+        if pkt.hole:
+            # Lost pages precede this packet (opusfile: OP_HOLE). Size
+            # the concealment from the granule jump when both ends are
+            # known, else conceal one packet duration.
+            missing = None
+            if last_gran is not None and pkt.granule_pos >= 0:
+                try:
+                    pp = parse_packet(pkt.data)
+                    cur = pp.frame_size * len(pp.frames)
+                    missing = min(pkt.granule_pos - last_gran - cur,
+                                  48000 * 10)
+                except Exception:
+                    missing = None
+            if missing is None:
+                push(None)
+            else:
+                while missing > 0:
+                    n = push(None, missing)
+                    if n <= 0:
+                        break
+                    missing -= n
+        if pkt.granule_pos >= 0:
+            last_gran = pkt.granule_pos
+        if len(pkt.data) == 0:
+            continue
+        push(pkt.data)
+    pcm = ms.flush()
+    if len(keep) != 1 or keep[0] != (0, pcm.shape[0]):
+        pcm = (torch.cat([pcm[a: a + n] for a, n in keep], dim=0) if keep
+               else pcm[:0])
+    return pcm
+
+
 def _decode_one_link(data, st, device):
-    """Decode one logical Opus stream (link)."""
-    fast = _decode_via_native_scan(data, device)
-    if fast is not None:
-        return fast
+    """Decode one logical Opus stream (link). ``data`` is the whole file
+    for the first link (the native scan's route) or None."""
+    if data is not None:
+        fast = _decode_via_native_scan(data, device)
+        if fast is not None:
+            return fast
     if st is None:
         raise DecodeError("no Opus stream found in Ogg container")
     head = parse_opus_head(st.packets[0].data)
@@ -426,18 +555,22 @@ def _decode_one_link(data, st, device):
     for pkt in st.packets[2:]:
         if pkt.granule_pos >= 0:
             end_granule = pkt.granule_pos
-    if any(p.hole for p in st.packets):
-        raise NotImplementedError(GENERAL_PATH)
 
     pcm = None
-    if head.stream_count > 1 and head.mapping_family == 1:
-        pcm = _decode_celt_multistream_pipeline(st, head, device)
-    elif head.stream_count == 1 and head.coupled_count in (0, 1):
-        pcm = _decode_celt_only_pipeline(st, head, device)
+    if not any(p.hole for p in st.packets):
+        if head.stream_count > 1 and head.mapping_family == 1:
+            pcm = _decode_celt_multistream_pipeline(st, head, device)
+        if pcm is None and (head.stream_count == 1
+                            and head.coupled_count in (0, 1)):
+            pcm = _decode_celt_only_pipeline(st, head, device)
     if pcm is None:
-        raise NotImplementedError(GENERAL_PATH)
-    # Trim: drop pre-skip, honor the final granule position (opusfile
-    # op_pcm_total semantics).
+        # Trim: drop pre-skip, honor the final granule position
+        # (opusfile op_pcm_total semantics), on the card.
+        out = decode_general(st, head, device)
+        end = out.shape[0] if end_granule is None else min(out.shape[0],
+                                                            end_granule)
+        out = out[head.pre_skip: max(end, head.pre_skip)]
+        return out.cpu().numpy().astype(np.float64), head
     start = head.pre_skip
     end = pcm.shape[0] if end_granule is None else min(pcm.shape[0],
                                                        end_granule)

@@ -26,18 +26,41 @@ COMBFILTER_MINPERIOD = 15
 class CeltDecoderState:
     """Decoder state the native stream decode reads and updates in place
     (energy memories and the range-coder seed). A stream needs a fresh
-    state: feeding a second stream through a used one decodes it wrong."""
+    state: feeding a second stream through a used one decodes it wrong.
+
+    The general path's per-frame decode (``celt_frame.py``) also reads
+    the coded channels, the band range and the postfilter parameters
+    carried from frame to frame, and loss concealment the pitch and LPC
+    it found at the first loss (reference: celt_decoder.c
+    last_pitch_index, lpc). The synthesis state (decode history,
+    overlap tail, deemphasis memory) lives on the card in ``lane``
+    (``runtime/opus_pipeline.py`` ``CeltLane``)."""
     channels: int
+    stream_channels: int = 0
     start: int = 0
+    end: int = 0
     downsample: int = 1
     rng: int = 0
     oldEBands: np.ndarray = None
     oldLogE: np.ndarray = None
     oldLogE2: np.ndarray = None
     backgroundLogE: np.ndarray = None
+    postfilter_period: int = 0
+    postfilter_gain: float = 0.0
+    postfilter_tapset: int = 0
+    postfilter_period_old: int = 0
+    postfilter_gain_old: float = 0.0
+    postfilter_tapset_old: int = 0
+    last_pitch_index: int = 0
+    plc_lpc: np.ndarray = None
+    lane: object = None
 
     def __post_init__(self):
-        nb = mode48000().nbEBands
+        mode = mode48000()
+        nb = mode.nbEBands
+        if self.stream_channels == 0:
+            self.stream_channels = self.channels
+        self.end = mode.effEBands
         self.oldEBands = np.zeros((2, nb))
         self.oldLogE = np.full(2 * nb, -28.0)
         self.oldLogE2 = np.full(2 * nb, -28.0)

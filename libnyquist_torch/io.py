@@ -3,9 +3,10 @@
 Equivalent of the reference's ``nqr::NyquistIO`` (reference:
 src/Common.cpp:36-151 — Load entry points, :66-74 magic-number map,
 :93-105 Ogg subtype sniffing, :153-188 extension parsing and decoder
-table) over the seven formats: Ogg Opus with CELT-only streams, Ogg
-Vorbis, FLAC (native and Ogg), WavPack, MP3 (Layer I/II and Layer III),
-Musepack (SV7 and SV8), WAV (PCM and IMA-ADPCM), AIFF/AIFF-C and CAF.
+table) over the seven formats: Ogg Opus (CELT, SILK and hybrid, lost
+pages, chained links), Ogg Vorbis, FLAC (native and Ogg), WavPack, MP3
+(Layer I/II and Layer III), Musepack (SV7 and SV8), WAV (PCM and
+IMA-ADPCM), AIFF/AIFF-C and CAF.
 Paths a slice has not ported yet raise NotImplementedError naming their
 ROADMAP.md item.
 """

@@ -13,6 +13,10 @@
  *   integer LPC synthesis   third_party/FLAC/src/lpc.c:784 (wide :1045)
  *   fixed predictors        third_party/FLAC/src/fixed.c
  *
+ * A 32-bit frame with a side channel codes a 33-bit side plane: it is
+ * decoded into an int64 plane (decode_subframe_wide, as libFLAC's
+ * *_wide_33bit restores) and the stereo undone into int32.
+ *
  * Neither CRC is verified (libFLAC verifies both).
  *
  * API: resumable at frame granularity so the caller never needs to know
@@ -255,6 +259,84 @@ static int decode_subframe(fbits *br, int32_t blocksize, int bps,
     return 0;
 }
 
+/* A 33-bit side subframe (a 32-bit frame with a side channel) into
+ * out[blocksize] as int64: the samples, warm-up values and predictions
+ * need 33 bits, the residuals still fit in int32 (libFLAC's
+ * *_restore_signal_wide_33bit).  Same layout rules as decode_subframe. */
+static inline int64_t fb_read_signed33(fbits *br, int n) {
+    if (n <= 32) return fb_read_signed(br, n);
+    uint64_t hi = fb_read(br, n - 16);
+    uint64_t v = (hi << 16) | fb_read(br, 16);
+    return (int64_t)(v << (64 - n)) >> (64 - n);
+}
+
+static int decode_subframe_wide(fbits *br, int32_t blocksize, int bps,
+                                int64_t *out, int32_t *scratch) {
+    if (fb_read(br, 1)) return -1;            /* padding bit */
+    uint32_t sftype = fb_read(br, 6);
+    int wasted = 0;
+    if (fb_read(br, 1)) {
+        wasted = 1 + (int)fb_unary(br);
+        bps -= wasted;
+        if (bps <= 0) return -1;
+    }
+    if (br->overrun) return -1;
+    if (sftype == 0) {                         /* constant */
+        int64_t v = fb_read_signed33(br, bps);
+        for (int32_t i = 0; i < blocksize; i++) out[i] = v;
+    } else if (sftype == 1) {                  /* verbatim */
+        for (int32_t i = 0; i < blocksize; i++)
+            out[i] = fb_read_signed33(br, bps);
+    } else if ((sftype >= 8 && sftype <= 12) || sftype >= 32) {
+        int fixed = sftype < 32;
+        int order = fixed ? (int)sftype - 8 : (int)(sftype & 31) + 1;
+        if (order > blocksize) return -1;
+        for (int i = 0; i < order; i++)
+            out[i] = fb_read_signed33(br, bps);
+        int32_t coefs[FLAC_MAX_ORDER];
+        int shift = 0;
+        if (!fixed) {
+            int prec = (int)fb_read(br, 4) + 1;
+            if (prec == 16) return -1;
+            shift = fb_read_signed(br, 5);
+            if (shift < 0) return -1;
+            for (int i = 0; i < order; i++)
+                coefs[i] = fb_read_signed(br, prec);
+        }
+        int32_t *res = scratch;
+        if (decode_residual(br, blocksize, order, res)) return -1;
+        int64_t n = blocksize - order;
+        int64_t *d = out + order;
+        for (int64_t i = 0; i < n; i++) {
+            int64_t p;
+            if (!fixed) {
+                int64_t sum = 0;
+                for (int j = 0; j < order; j++)
+                    sum += (int64_t)coefs[j] * d[i - j - 1];
+                p = sum >> shift;
+            } else if (order == 0) {
+                p = 0;
+            } else if (order == 1) {
+                p = d[i - 1];
+            } else if (order == 2) {
+                p = 2 * d[i - 1] - d[i - 2];
+            } else if (order == 3) {
+                p = 3 * d[i - 1] - 3 * d[i - 2] + d[i - 3];
+            } else {
+                p = 4 * d[i - 1] - 6 * d[i - 2] + 4 * d[i - 3] - d[i - 4];
+            }
+            d[i] = res[i] + p;
+        }
+    } else {
+        return -1;                             /* reserved type */
+    }
+    if (br->overrun) return -1;
+    if (wasted)
+        for (int32_t i = 0; i < blocksize; i++)
+            out[i] = (int64_t)((uint64_t)out[i] << wasted);
+    return 0;
+}
+
 /* Decode frames from byte `pos` until EOF, output capacity, or
  * max_frames.  out receives interleaved int32 samples.
  *
@@ -330,19 +412,25 @@ int64_t flac_decode_stream(const uint8_t *data, int64_t nbytes,
             break;
         }
 
+        /* a 33-bit side plane goes to the int64 buffer over the
+           unused channel slots 2..7 (stereo frames only) */
+        int64_t *side64 = (int64_t *)(work + 2 * chstride);
+        int wide = 0;
         for (int c = 0; c < channels; c++) {
             int ebps = bps;
             if ((assign == 1 && c == 1) || (assign == 2 && c == 0)
                 || (assign == 3 && c == 1))
                 ebps += 1;                     /* side channel */
-            if (ebps > 32)                     /* 33-bit side plane:
-                                                  int32 buffers can't hold
-                                                  it */
+            if (ebps > 32) {
+                if (decode_subframe_wide(&br, blocksize, ebps, side64,
+                                         scratch))
+                    return -1;
+                wide = 1;
+            } else if (decode_subframe(&br, blocksize, ebps,
+                                       work + c * chstride + FLAC_MAX_ORDER,
+                                       scratch)) {
                 return -1;
-            if (decode_subframe(&br, blocksize, ebps,
-                                work + c * chstride + FLAC_MAX_ORDER,
-                                scratch))
-                return -1;
+            }
         }
         fb_align(&br);
         fb_read(&br, 16);                      /* CRC-16 (not verified) */
@@ -352,7 +440,29 @@ int64_t flac_decode_stream(const uint8_t *data, int64_t nbytes,
         int32_t *o = out + written;
         const int32_t *a = work + FLAC_MAX_ORDER;
         const int32_t *b = work + chstride + FLAC_MAX_ORDER;
+        if (wide) {                            /* one plane is int64 side */
+            const int64_t *s = side64;
+            for (int32_t i = 0; i < blocksize; i++) {
+                int64_t l, r;
+                if (assign == 1) {             /* left/side */
+                    l = a[i];
+                    r = l - s[i];
+                } else if (assign == 2) {      /* side/right */
+                    r = b[i];
+                    l = s[i] + r;
+                } else {                       /* mid/side */
+                    int64_t mid = ((int64_t)a[i] << 1) | (s[i] & 1);
+                    l = (mid + s[i]) >> 1;
+                    r = (mid - s[i]) >> 1;
+                }
+                o[2 * i] = (int32_t)l;
+                o[2 * i + 1] = (int32_t)r;
+            }
+            assign = -1;                       /* done: skip the switch */
+        }
         switch (assign) {
+        case -1:
+            break;
         case 1:                                /* left/side */
             for (int32_t i = 0; i < blocksize; i++) {
                 o[2 * i] = a[i];

@@ -53,35 +53,36 @@ def build_chunk_params(frame_params, frame_size: int, window: np.ndarray,
     """
     overlap = len(window)
     w2 = (window * window).astype(np.float32)
+    cpf = frame_size // CHUNK
+    # Per chunk of a frame: which of the two calls it belongs to, and its
+    # crossfade weights (w2 within the first `overlap` samples of that
+    # call's segment, then 1.0: new params only).
+    pos = CHUNK * np.arange(cpf)
+    in_a = pos < short_mdct_size
+    rel = (pos - np.where(in_a, 0, short_mdct_size))[:, None] \
+        + np.arange(CHUNK)
+    tmpl = np.where(rel < overlap, w2[np.minimum(rel, overlap - 1)],
+                    np.float32(1.0)).astype(np.float32)
+
+    def per_chunk(ka, kb, dtype):
+        a = np.asarray([p[ka] for p in frame_params], dtype)
+        b = np.asarray([p[kb] for p in frame_params], dtype)
+        sel = in_a.reshape((1, cpf) + (1,) * (a.ndim - 1))
+        out = np.where(sel, a[:, None], b[:, None])
+        return np.ascontiguousarray(out.reshape((-1,) + a.shape[1:]))
+
     n_frames = len(frame_params)
-    chunks_per_frame = frame_size // CHUNK
-    total = n_frames * chunks_per_frame
-    T0 = np.zeros(total, np.int32)
-    T1 = np.zeros(total, np.int32)
-    g0 = np.zeros((total, 3), np.float32)
-    g1 = np.zeros((total, 3), np.float32)
-    fade = np.zeros((total, CHUNK), np.float32)
-    for f, p in enumerate(frame_params):
-        for k in range(chunks_per_frame):
-            pos = k * CHUNK  # within frame
-            idx = f * chunks_per_frame + k
-            if pos < short_mdct_size:
-                seg_start = 0
-                T0[idx], T1[idx] = p["T0a"], p["T1a"]
-                g0[idx], g1[idx] = p["g0a"], p["g1a"]
-            else:
-                seg_start = short_mdct_size
-                T0[idx], T1[idx] = p["T0b"], p["T1b"]
-                g0[idx], g1[idx] = p["g0b"], p["g1b"]
-            rel = pos - seg_start
-            # crossfade factor per sample: w2 within the first `overlap`
-            # samples of the segment, then 1.0 (new params only).
-            f_vals = np.ones(CHUNK, np.float32)
-            for j in range(CHUNK):
-                r = rel + j
-                if r < overlap:
-                    f_vals[j] = w2[r]
-            fade[idx] = f_vals
+    if n_frames == 0:
+        z = np.zeros(0, np.int32)
+        return dict(T0=z, T1=z, gains0=np.zeros((0, 3), np.float32),
+                    gains1=np.zeros((0, 3), np.float32),
+                    fade=np.zeros((0, CHUNK), np.float32))
+    T0 = per_chunk("T0a", "T0b", np.int32)
+    T1 = per_chunk("T1a", "T1b", np.int32)
+    g0 = per_chunk("g0a", "g0b", np.float32)
+    g1 = per_chunk("g1a", "g1b", np.float32)
+    fade = np.ascontiguousarray(np.broadcast_to(
+        tmpl, (n_frames, cpf, CHUNK)).reshape(-1, CHUNK))
     return dict(T0=T0, T1=T1, gains0=g0, gains1=g1, fade=fade)
 
 

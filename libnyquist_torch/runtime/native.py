@@ -1,8 +1,9 @@
 """Native host-ops loader: builds and binds the port's two host libraries.
 
 * ``libcelthost.so`` (``lib()``): the CELT entropy decode (range
-  decoder, bit allocation, PVQ index decode), the bits-only trace decode
-  with its leaf packer, the Ogg/Opus packet scan and the one-pass Ogg
+  decoder, bit allocation, PVQ index decode) whole-stream and by frame
+  stage, the bits-only trace decode with its leaf packer, the SILK
+  decode and concealment, the Ogg/Opus packet scan and the one-pass Ogg
   packet collector the Vorbis decoder uses;
 * ``libcodechost.so`` (``codec_lib()``): the MP3 Layer III whole-stream
   entropy decode, the Musepack SV7/SV8 frame reader, the Vorbis
@@ -28,7 +29,7 @@ import threading
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 _NATIVE_DIR = _PKG / "native"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("celt_bands.c", "ogg_opus.c", "replay_pack.c")
+SOURCES = ("celt_bands.c", "ogg_opus.c", "replay_pack.c", "silk_dec.c")
 _HEADERS = ("ecdec.h",)
 CODEC_SOURCES = ("mp3_stream.c", "mp3_huff.c", "mpc_frame.c", "vorbis_res.c",
                  "flac_stream.c", "wv_words.c", "wv_simd.c", "wv_dsd.c")
@@ -139,6 +140,79 @@ def _bind(L: ctypes.CDLL) -> ctypes.CDLL:
         i64p, i64p, c_i64, c_i64,               # bucket_base, band_off, nmax, F
         i32p, i32p, u32p, i32p,                 # out n, k, i, tgt
         i64p,                                   # rs_slot
+    ]
+    # The per-frame CELT stages of the general Opus path: each takes the
+    # frame buffer and the range decoder's ten-word state (in and out).
+    u32 = ctypes.c_uint32
+    ec = [ctypes.c_char_p, u32, i64p]           # buf, storage, ec state
+    L.celt_coarse_energy.restype = None
+    L.celt_coarse_energy.argtypes = ec + [
+        i32p, c_int, c_int,                     # prob_model, start, end
+        f64p, c_int,                            # oldEBands, nbE
+        c_int, c_int, c_int,                    # intra, C, LM
+    ]
+    L.celt_fine_energy.restype = None
+    L.celt_fine_energy.argtypes = ec + [
+        i32p, f64p, c_int,                      # fine_quant, oldEBands, nbE
+        c_int, c_int, c_int,                    # start, end, C
+    ]
+    L.celt_energy_finalise.restype = c_i64
+    L.celt_energy_finalise.argtypes = ec + [
+        i32p, i32p, c_i64,                      # fine_quant, priority, left
+        f64p, c_int,                            # oldEBands, nbE
+        c_int, c_int, c_int,                    # start, end, C
+    ]
+    L.celt_tf_decode.restype = None
+    L.celt_tf_decode.argtypes = ec + [
+        c_int, c_int, c_int,                    # start, end, isTransient
+        i32p, c_int,                            # tf_res, LM
+    ]
+    L.celt_dynalloc.restype = c_i64
+    L.celt_dynalloc.argtypes = ec + [
+        i16p, c_int, c_int, c_int, c_int,       # eBands, start, end, C, LM
+        i32p, c_i64,                            # cap, total_bits
+        i32p, i32p,                             # offsets, alloc_trim (out)
+    ]
+    L.celt_compute_allocation.restype = None
+    L.celt_compute_allocation.argtypes = ec + [
+        i16p, c_int, i16p,                      # eBands, nb, logN
+        ctypes.c_char_p, c_int,                 # allocVectors, nbAV
+        i32p, i32p,                             # cap, offsets
+        c_int, c_int, c_int, c_i64,             # start, end, trim, total
+        c_int, c_int,                           # C, LM
+        i32p, i32p, i32p, i32p,                 # pulses, ebits, fprio, res
+    ]
+    L.celt_bands_decode.restype = u32
+    L.celt_bands_decode.argtypes = ec + [
+        i16p, c_int, i16p, i16p,                # eBands, nb, logN, ci
+        ctypes.c_char_p,                        # cache_bits
+        c_int, c_int, c_int, c_int,             # start, end, B, spread
+        c_int, c_int,                           # dual_stereo, intensity
+        i32p, c_i64, c_i64,                     # tf_res, total, balance
+        i32p, c_int, c_int,                     # pulses, LM, codedBands
+        u32, c_int,                             # seed, C
+        f64p, ctypes.c_char_p,                  # X, collapse masks
+    ]
+    # native/silk_dec.c: tables once, then an opaque decoder per stream
+    L.silk_set_tables.restype = None
+    L.silk_set_tables.argtypes = [
+        ctypes.c_char_p, i64p, c_int,           # u8 blob, offs, n
+        i32p, i64p, c_int,                      # i32 blob, offs, n
+    ]
+    L.silk_create.restype = ctypes.c_void_p
+    L.silk_create.argtypes = [c_int]
+    L.silk_free.restype = None
+    L.silk_free.argtypes = [ctypes.c_void_p]
+    L.silk_decode.restype = c_i64
+    L.silk_decode.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, u32,  # handle, buf, storage
+        i64p, c_int, c_int, c_int,              # ec, channels, rate, ms
+        i16p,                                   # out
+    ]
+    L.silk_decode_lost.restype = c_i64
+    L.silk_decode_lost.argtypes = [
+        ctypes.c_void_p, c_int, c_int, c_int,   # handle, channels, rate, ms
+        i16p,                                   # out
     ]
     L.ogg_opus_celt_scan.restype = c_i64
     L.ogg_opus_celt_scan.argtypes = [

@@ -334,8 +334,9 @@ def synthesize_streams_unified(
     LM = (N // mode.shortMdctSize).bit_length() - 1
     if LM == 0:
         raise NotImplementedError(
-            "2.5 ms (LM = 0) frames in the unified serving path: see "
-            "ROADMAP.md, queue item 'Opus general path'")
+            "2.5 ms (LM = 0) frames in the unified serving path, which "
+            "the reference's rejects too (ROADMAP.md, faults: kept); "
+            "OpusDecoder and load() decode them")
     n_steps = -(-F // f_chunk)
     synth = synth_from_numpy(synth_tables(
         [(short_blocks, pf_pitch, pf_gain, pf_tapset)], N, n_steps,

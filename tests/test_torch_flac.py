@@ -329,15 +329,17 @@ def test_malformed_streams_raise_decode_error(name):
 @pytest.mark.parametrize("assign", ["left_side", "right_side", "mid_side"])
 def test_32_bit_side_channels(assign):
     """A 32-bit frame with a side channel codes a 33-bit plane. The C
-    frame decode refuses it, so the port raises DecodeError; the JAX
-    package's Python frame loop decodes it (ROADMAP.md, faults)."""
+    frame decode takes it into an int64 plane and undoes the stereo into
+    int32, so the port equals the JAX package's Python frame loop and the
+    writer's samples bit for bit."""
     data, samples = fs.make_flac_stream(7, 0.1, bps=32,
                                         assignments=(assign,))
-    with pytest.raises(DecodeError):
-        nqt.load(data, extension="flac", device="cpu")
+    got = nqt.load(data, extension="flac", device="cpu")
     ref = nq.load(data, extension="flac")
     assert np.array_equal(ref.samples.view(np.int32),
                           _scaled(samples, 32).view(np.int32))
+    assert np.array_equal(got.samples.view(np.int32),
+                          ref.samples.view(np.int32))
     data, samples = fs.make_flac_stream(7, 0.1, bps=32,
                                         assignments=("independent",))
     _roundtrip(data, samples, 32)

@@ -31,7 +31,11 @@ def test_port_modules_import_without_jax():
                  "formats.opus.iy_split", "runtime.serving", "formats.mp3",
                  "formats.musepack", "ops.mp3_synth", "formats.vorbis",
                  "formats.wav", "formats.aiff", "ops.pcm", "ops.adpcm",
-                 "formats.flac", "formats.wavpack", "ops.lossless"):
+                 "formats.flac", "formats.wavpack", "ops.lossless",
+                 "formats.opus.decoder", "formats.opus.silk",
+                 "formats.opus.silk_tables", "formats.opus.range_coder",
+                 "formats.opus.celt_frame", "formats.opus.celt_plc",
+                 "formats.opus.repacketizer"):
         assert f"libnyquist_torch.{name}" in mods
     # Only what the port's imports add counts: an interpreter start-up hook
     # may load jax before any of them runs.
@@ -57,7 +61,7 @@ def test_stream_writers_import_without_jax():
         "import importlib.util, sys\n"
         "before = set(sys.modules)\n"
         "for name in ('vorbis_stream', 'l3_stream', 'flac_stream',"
-        " 'wv_stream'):\n"
+        " 'wv_stream', 'opus_stream'):\n"
         "    spec = importlib.util.spec_from_file_location(\n"
         "        name, f'tools/{name}.py')\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
@@ -107,11 +111,11 @@ def _ogg_pages(data):
     return pages
 
 
-def _not_yet_ported(name):
-    """Inputs of the queue items still open (ROADMAP.md): Layer III the
-    native decode hands back (free format, a Layer II frame ahead of
-    Layer III), a chained Ogg Opus file (a second link under another
-    serial number) and one with a lost page."""
+def _inputs(name):
+    """Layer III the native decode hands back (free format, a Layer II
+    frame ahead of Layer III: a queue item still open, ROADMAP.md), and
+    two general-path Opus files: a chained one (a second link under
+    another serial number) and one with a lost page."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
@@ -131,16 +135,28 @@ def _not_yet_ported(name):
     return b"".join(pages[:4] + pages[5:]), "opus"
 
 
-@pytest.mark.parametrize("name", [
-    "free-format Layer III", "mixed layers", "chained Opus",
-    "lost Opus page",
-])
+@pytest.mark.parametrize("name", ["free-format Layer III", "mixed layers"])
 def test_other_formats_name_their_roadmap_item(name):
     import libnyquist_torch as nqt
 
-    data, ext = _not_yet_ported(name)
+    data, ext = _inputs(name)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         nqt.load(data, extension=ext, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["chained Opus", "lost Opus page"])
+def test_general_opus_inputs_match_jax(name):
+    """The general Opus path decodes what it once named as a queue item:
+    load() equals the JAX package within 1e-4."""
+    import libnyquist_torch as nqt
+    import libnyquist_tpu as nq
+
+    data, ext = _inputs(name)
+    got = nqt.load(data, extension=ext, device="cpu")
+    ref = nq.load(data, extension=ext)
+    assert got.channel_count == ref.channel_count == 8
+    assert got.samples.shape == ref.samples.shape
+    assert np.abs(got.samples - ref.samples).max() < 1e-4
 
 
 def test_unified_path_rejects_lm0():
