@@ -115,6 +115,22 @@ failure exits non-zero before the result line:
    outside the synthesis and mix calls, their device span by CUDA
    events, flushes, synthesize_segment calls, K1 launches, the realtime
    factor of load().
+10. encode phase: the polyphase resampler on [2, 3.7 min] at 44.1->48,
+   22.05->48 and 48->16 kHz against a float64 evaluation of its sum on
+   windows (1e-5 of max(|ref|, 1)), a tone above 80 dB and decimation's
+   zero-filled tail; the WAV and AIFF writers of every format on 3.7
+   min of stereo equal to the CPU's bytes, dither within 1 LSB; the
+   Opus encoders on the host with their resamples on the card (CELT 10
+   s stereo, equal to the CPU's bytes; CELT from 44.1 kHz, multistream 3
+   s of 6 channels, SILK 4 s mono with in-band FEC and 2 s stereo,
+   hybrid 2 s, automatic 6 s of music, speech, music), each stream's
+   load() on the card above the JAX package's tests' SNR floors; FEC:
+   packet 40 of the SILK stream dropped and recovered from the next on
+   the card (above 12 dB, equal to the CPU); free-format and
+   mixed-layer MP3 through load() against the CPU (1e-5). CPU references
+   in 4 worker processes; K1's launches counted over the round trips.
+   Host seconds and audio-seconds per second of each encoder, device ms
+   of the resampler and of float32_to_pcm beside their byte bounds.
 Phases 4 to 6 print host seconds and host audio-seconds per second,
 device seconds and the device realtime factor, and the bounds reckoned
 from the shapes (float ops at the card's float32 peak outside the tensor
@@ -132,6 +148,7 @@ from __future__ import annotations
 import ctypes
 import importlib.util
 import json
+import math
 import pathlib
 import statistics
 import struct
@@ -2121,6 +2138,405 @@ def phase9_opus_general(nqt, comb, card, dev):
             "phase_s": phase_s, "card": card}
 
 
+# --------------------------------------------------------------------------
+# phase 10: the encode side and the two repairs
+# --------------------------------------------------------------------------
+ENC_SECONDS = 222.0               # the resampler's and PCM writers' input
+SRC_CASES = ((44100, 48000, 1000.0), (22050, 48000, 5000.0),
+             (48000, 16000, 6000.0))
+FEC_LOST = 40                     # the SILK FEC stream's dropped packet
+
+
+def speechish(seconds, sr=48000, level=0.5):
+    """Gliding-pitch harmonics under a syllabic envelope over a noise
+    floor (the JAX package's encoder tests' speech-like signal)."""
+    t = np.arange(int(sr * seconds)) / sr
+    f0 = 120 * (1 + 0.1 * np.sin(2 * np.pi * 2.5 * t))
+    ph = np.cumsum(2 * np.pi * f0 / sr)
+    x = sum(0.25 / np.sqrt(h) * np.sin(h * ph) for h in range(1, 9))
+    x *= 0.5 + 0.5 * np.sin(2 * np.pi * 3 * t) ** 2
+    x += 0.02 * np.random.default_rng(0).standard_normal(len(t))
+    return (level * x / np.abs(x).max()).astype(np.float32)
+
+
+def talk(seconds, hiss=0.1):
+    """Syllables of a gliding buzz in noise (the JAX package's analysis
+    tests' speech-like content), 48 kHz."""
+    rng = np.random.default_rng(0)
+    t = np.arange(int(48000 * seconds)) / 48000
+    env = np.clip(np.sin(2 * np.pi * 3.1 * t), 0, None) ** 2
+    f0 = 120 * (1 + 0.25 * np.sin(2 * np.pi * 0.7 * t))
+    ph = 2 * np.pi * np.cumsum(f0) / 48000
+    buzz = sum(np.sin(k * ph) / k for k in range(1, 9))
+    noise = rng.standard_normal(len(t)) * hiss
+    return (env * (0.5 * buzz + noise)).astype(np.float32) * 0.4
+
+
+def sines(ch, sr, seconds, base=220.0):
+    t = np.arange(int(sr * seconds)) / sr
+    return np.stack([0.4 * np.sin(2 * np.pi * base * (c + 1) * t)
+                     for c in range(ch)], 1).reshape(-1).astype(np.float32)
+
+
+def audio_of(samples, ch, sr):
+    from libnyquist_torch.audio_data import AudioData, PCMFormat
+
+    a = AudioData()
+    a.samples, a.channel_count, a.sample_rate = samples, ch, sr
+    a.source_format = PCMFormat.PCM_FLT
+    return a
+
+
+def snr_db(ref, out) -> float:
+    ref = np.asarray(ref, np.float64).ravel()
+    e = np.asarray(out, np.float64).ravel() - ref
+    return float(10 * np.log10(np.dot(ref, ref) / max(np.dot(e, e), 1e-30)))
+
+
+def aligned_snr_db(ref, out, skip=960):
+    """The best lag in 0..199 and a least-squares gain first (the SILK
+    resampler chain delays), as the JAX package's encoder tests measure."""
+    ref, out = np.asarray(ref, np.float64), np.asarray(out, np.float64)
+    n = min(len(ref), len(out))
+    ref, out = ref[:n], out[:n]
+    lag = max(range(200), key=lambda k: float(np.dot(ref[:n - k], out[k:])))
+    m = n - lag - skip
+    o, r = out[lag:lag + m], ref[:m]
+    return snr_db(r, float(np.dot(r, o) / max(np.dot(o, o), 1e-12)) * o)
+
+
+def src_window_f64(x, W, K, L, M, delay, o0, n):
+    """Outputs o0 .. o0 + n of the polyphase sum in float64 from the
+    float32 weights: y[o] = sum_j W[p, j] x[c M - K + 1 + j] with
+    o + delay = c L + p, zeros outside the input."""
+    o = np.arange(o0, o0 + n) + delay
+    c, p = o // L, o % L
+    idx = c[:, None] * M - K + 1 + np.arange(W.shape[1])[None, :]
+    valid = (idx >= 0) & (idx < len(x))
+    xv = np.where(valid, x[np.clip(idx, 0, len(x) - 1)], 0.0)
+    return (W.astype(np.float64)[p] * xv).sum(1)
+
+
+def pcm_writers(samples, ch, sr, fmts, dev):
+    """The WAV and AIFF bytes of every format, converted on ``dev``."""
+    from libnyquist_torch import encoders as E
+    from libnyquist_torch.audio_data import PCMFormat
+
+    a = audio_of(samples, ch, sr)
+    out = {}
+    for name in fmts:
+        p = E.EncoderParams(ch, getattr(PCMFormat, name))
+        out["wav", name] = E.encode_wav_to_buffer(p, a, device=dev)
+        if name != "PCM_FLT":
+            out["aiff", name] = E.encode_aiff_to_buffer(p, a, device=dev)
+    return out
+
+
+def _encode_cpu(job):
+    """One CPU reference of phase 10, run in a worker: ("pcm", ...) the
+    WAV and AIFF bytes; ("celt", ...) the CELT encode; ("mp3", data) a
+    load(); ("fec", packets, channels) a clean decode and the recovery
+    of packet FEC_LOST."""
+    sys.path.insert(0, str(ROOT))
+    torch.set_num_threads(1)
+    kind, *args = job
+    t0 = time.perf_counter()
+    if kind == "pcm":
+        out = pcm_writers(*args, "cpu")
+    elif kind == "celt":
+        from libnyquist_torch import encoders as E
+        from libnyquist_torch.audio_data import PCMFormat
+
+        samples, ch, kbps = args
+        out = E.encode_opus_to_buffer(E.EncoderParams(ch, PCMFormat.PCM_FLT),
+                                      audio_of(samples, ch, 48000), kbps,
+                                      device="cpu")
+    elif kind == "mp3":
+        import libnyquist_torch as nqt
+
+        out = nqt.load(args[0], extension="mp3", device="cpu").samples
+    else:
+        out = fec_recovery(args[0], args[1], "cpu")
+    return out, time.perf_counter() - t0
+
+
+def fec_recovery(pkts, ch, dev):
+    """(the clean decode of packet FEC_LOST, its recovery from the next
+    packet's LBRR data after the loss) as host arrays."""
+    from libnyquist_torch.formats.opus.decoder import OpusDecoder
+
+    d = OpusDecoder(ch, device=dev)
+    for q in pkts[:FEC_LOST]:
+        d.push_packet(q)
+    d.flush()
+    clean = d.decode_packet(pkts[FEC_LOST]).cpu().numpy()
+    d = OpusDecoder(ch, device=dev)
+    for q in pkts[:FEC_LOST]:
+        d.push_packet(q)
+    d.flush()
+    rec = d.decode_packet(pkts[FEC_LOST + 1], fec=True).cpu().numpy()
+    return clean, rec
+
+
+def phase10_encode(nqt, comb, card, dev):
+    """The encode side at full width and the two repairs: the polyphase
+    resampler and the WAV/AIFF writers on 3.7 min of stereo, the Opus
+    encoders (CELT 10 s stereo, multistream 3 s of 6 channels, SILK 4 s
+    mono with in-band FEC and 2 s stereo, hybrid 2 s, automatic 6 s) with
+    their streams' load() on the card, FEC recovery on the card, and
+    free-format and mixed-layer MP3 through load(). CPU references run
+    in worker processes."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from libnyquist_torch import encoders as E
+    from libnyquist_torch.audio_data import PCMFormat
+    from libnyquist_torch.formats.ogg import demux
+    from libnyquist_torch.ops import pcm as pcm_ops
+    from libnyquist_torch.ops import src
+
+    t_phase = time.perf_counter()
+    log(f"phase 10: the encode side, {ENC_SECONDS:.0f} s of stereo through "
+        f"the resampler and the WAV/AIFF writers, the Opus encoders, FEC "
+        f"recovery and Layer III outside the native decode")
+    rng = np.random.default_rng(10)
+    n44 = int(44100 * ENC_SECONDS)
+    pcm_in = np.stack([sines(1, 44100, ENC_SECONDS, 440.0),
+                       (rng.standard_normal(n44) * 0.3).clip(-1.1, 1.1)],
+                      1).reshape(-1).astype(np.float32)
+    fmts = ("PCM_U8", "PCM_16", "PCM_24", "PCM_32", "PCM_FLT")
+    celt_in = sines(2, 48000, 10.0, 440.0)
+    l3 = load_tool("l3_stream")
+    mp3s = {"free-format": l3.make_l3_stream(3, 2.0, free_format=True),
+            "mixed layers": ((FIXTURES / "l2_stereo_44k.mp3").read_bytes()
+                             + l3.make_l3_stream(3, 2.0))}
+    pool = ProcessPoolExecutor(
+        4, mp_context=multiprocessing.get_context("spawn"))
+    cpu_pcm = pool.submit(_encode_cpu, ("pcm", pcm_in, 2, 44100, fmts))
+    cpu_celt = pool.submit(_encode_cpu, ("celt", celt_in, 2, 160))
+    cpu_mp3 = {k: pool.submit(_encode_cpu, ("mp3", v))
+               for k, v in mp3s.items()}
+    comb.comb_filter_cuda.launches = 0
+
+    # the resampler on [2, 3.7 min]
+    src_rows = []
+    for sr_in, sr_out, freq in SRC_CASES:
+        n = int(sr_in * ENC_SECONDS)
+        t = np.arange(n) / sr_in
+        x = np.stack([np.sin(2 * np.pi * freq * t),
+                      rng.standard_normal(n) * 0.3]).astype(np.float32)
+        xd = torch.from_numpy(x).to(dev)
+        y = src.resample(xd, sr_in, sr_out, device=dev).cpu().numpy()
+        n_out = round(n * sr_out / sr_in)
+        check(y.shape == (2, n_out) and bool(np.isfinite(y).all()),
+              f"resample {sr_in}->{sr_out}: shape or values")
+        g = math.gcd(sr_in, sr_out)
+        L, M = sr_out // g, sr_in // g
+        W, K, delay = src.polyphase_weights(L, M)
+        filled = (-(-n // M) + 1) * L - delay
+        tail = max(0, n_out - filled)
+        check(not y[:, n_out - tail:].any(), "resample: the tail past the "
+              "filtered output is not zero")
+        if sr_in > sr_out:
+            check(tail > 0 and np.abs(y[1, n_out - tail - 64:n_out - tail]
+                                      ).min() > 0,
+                  f"resample {sr_in}->{sr_out}: no zero tail, or one too "
+                  f"long")
+        worst = 0.0
+        for r in range(2):
+            x64 = x[r].astype(np.float64)
+            for o0 in (0, n_out // 2, n_out - tail - 4096):
+                ref = src_window_f64(x64, W, K, L, M, delay, o0, 4096)
+                d = float(np.abs(y[r, o0:o0 + 4096] - ref).max())
+                worst = max(worst, d / max(1.0, float(np.abs(ref).max())))
+        check(worst <= 1e-5, f"resample {sr_in}->{sr_out} vs float64 {worst}")
+        ideal = np.sin(2 * np.pi * freq * np.arange(n_out) / sr_out)
+        sl = slice(3000, n_out - tail - 3000)
+        snr = snr_db(ideal[sl], y[0, sl])
+        check(snr > 80.0, f"resample {sr_in}->{sr_out}: tone SNR {snr:.1f}")
+        ms = cuda_ms(lambda: src.resample(xd, sr_in, sr_out, device=dev), 5)
+        nbytes = 4 * (x.size + 2 * n_out)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        src_rows.append({"sr_in": sr_in, "sr_out": sr_out, "ms": ms,
+                         "bound_ms": bound, "bytes": nbytes,
+                         "err_vs_f64": worst, "tone_snr_db": snr,
+                         "zero_tail": tail})
+        log(f"  resample {sr_in}->{sr_out} on [2, {n}]: {ms:.3f} ms by CUDA "
+            f"events (median of 5), byte bound {bound:.4f} ms "
+            f"({nbytes / 1e6:.1f} MB at 3.35 TB/s) = {ms / bound:.1f}x; "
+            f"vs float64 {worst:.2e}, tone SNR {snr:.1f} dB, zero tail "
+            f"{tail} on {card}")
+        del xd
+
+    # WAV and AIFF: the CPU's bytes with dither off; dither within 1 LSB
+    t0 = time.perf_counter()
+    got = pcm_writers(pcm_in, 2, 44100, fmts, dev)
+    host_pcm = time.perf_counter() - t0
+    ref, _ = cpu_pcm.result()
+    for key in ref:
+        check(got[key] == ref[key], f"{key[0]} {key[1]}: card and CPU bytes "
+              f"differ")
+    p16 = E.EncoderParams(2, PCMFormat.PCM_16, E.DitherType.DITHER_TRIANGLE)
+    on = E.encode_wav_to_buffer(p16, audio_of(pcm_in, 2, 44100), device=dev,
+                                generator=torch.Generator(dev).manual_seed(3))
+    d = (np.frombuffer(on[44:], "<i2").astype(np.int64)
+         - np.frombuffer(got["wav", "PCM_16"][44:], "<i2"))
+    check(np.abs(d).max() == 1 and np.count_nonzero(d) > 0,
+          f"dithered PCM_16 off by {np.abs(d).max()} LSB")
+    xd = torch.from_numpy(pcm_in).to(dev)
+    pcm_rows = []
+    for name in fmts[:4]:       # float32 output is its input: no device work
+        fmt = getattr(PCMFormat, name)
+        width = {"PCM_U8": 1, "PCM_16": 2}.get(name, 4)
+        ms = cuda_ms(lambda: pcm_ops.float32_to_pcm(xd, fmt), 5)
+        nbytes = pcm_in.size * (4 + width)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        pcm_rows.append({"format": name, "ms": ms, "bound_ms": bound})
+        log(f"  float32_to_pcm {name} on {pcm_in.size} samples: {ms:.3f} ms,"
+            f" byte bound {bound:.4f} ms = {ms / bound:.1f}x")
+    del xd
+    log(f"  WAV and AIFF: {len(ref)} files of {ENC_SECONDS:.0f} s stereo "
+        f"equal the CPU's bytes ({host_pcm:.2f} s for all on the card path);"
+        f" dithered PCM_16 within 1 LSB ({np.count_nonzero(d)} samples "
+        f"moved)")
+
+    # the Opus encoders; their streams' load() on the card
+    enc_rows = []
+    fams = {}
+
+    def enc(label, samples, ch, sr, seconds, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kw.pop("multistream", False):
+            buf = E.encode_opus_multistream_to_buffer(
+                E.EncoderParams(ch, PCMFormat.PCM_FLT),
+                audio_of(samples, ch, sr), device=dev, **kw)
+        else:
+            buf = E.encode_opus_to_buffer(
+                E.EncoderParams(ch, PCMFormat.PCM_FLT),
+                audio_of(samples, ch, sr), device=dev, **kw)
+        host = time.perf_counter() - t0
+        back = nqt.load(buf, extension="opus", device=dev)
+        check(back.channel_count == ch and bool(np.isfinite(
+            back.samples).all()), f"{label}: load() channels or values")
+        st = next(iter(demux(buf).values()))
+        fams[label] = {"silk" if c < 12 else "hybrid" if c < 16 else "celt"
+                       for c in (q.data[0] >> 3 for q in st.packets[2:])}
+        row = {"encoder": label, "audio_s": seconds, "host_s": host,
+               "audio_s_per_s": seconds / host, "bytes": len(buf)}
+        enc_rows.append(row)
+        return buf, back, st
+
+    buf_celt, back, _ = enc("CELT 48 kHz stereo", celt_in, 2, 48000, 10.0,
+                            bitrate_kbps=160)
+    snr_celt = snr_db(celt_in, back.samples)
+    check(snr_celt > 40.0, f"CELT round trip {snr_celt:.1f} dB")
+    x441 = sines(2, 44100, 2.0, 440.0)
+    _, back, _ = enc("CELT from 44.1 kHz", x441, 2, 44100, 2.0,
+                     bitrate_kbps=160)
+    check(abs(back.sample_count - round(x441.size * 48 / 44.1)) <= 2,
+          "CELT from 44.1 kHz: length")
+    ref48 = src.resample(x441.reshape(-1, 2).T, 44100, 48000,
+                         device=dev).cpu().numpy().T.reshape(-1)
+    snr_441 = snr_db(ref48, back.samples[:ref48.size])
+    check(snr_441 > 40.0, f"CELT from 44.1 kHz round trip {snr_441:.1f} dB")
+    ms_in = sines(6, 48000, 3.0)
+    _, back, _ = enc("multistream 6 ch", ms_in, 6, 48000, 3.0,
+                     multistream=True)
+    out = back.samples.reshape(-1, 6)
+    snr_ms = min(snr_db(ms_in.reshape(-1, 6)[:, c], out[:, c])
+                 for c in range(6))
+    check(back.sample_count == ms_in.size and snr_ms > 12.0,
+          f"multistream round trip {snr_ms:.1f} dB")
+    sp4 = speechish(4.0)
+    buf_fec, back, st = enc("SILK mono (FEC)", sp4, 1, 48000, 4.0,
+                            mode="silk", fec=True)
+    snr_silk = aligned_snr_db(sp4, back.samples)
+    check(snr_silk > 17.0, f"SILK mono round trip {snr_silk:.1f} dB")
+    pkts = [q.data for q in st.packets[2:]]
+    cpu_fec = pool.submit(_encode_cpu, ("fec", pkts, 1))
+    sp2 = speechish(2.0)
+    st_in = np.stack([sp2, np.roll(sp2, 240) * 0.9], 1).reshape(-1)
+    _, back, _ = enc("SILK stereo", st_in, 2, 48000, 2.0, mode="silk")
+    out = back.samples.reshape(-1, 2)
+    snr_st = min(aligned_snr_db(st_in.reshape(-1, 2)[:, c], out[:, c])
+                 for c in range(2))
+    check(snr_st > 15.0, f"SILK stereo round trip {snr_st:.1f} dB")
+    t2 = np.arange(sp2.size) / 48000
+    hy_in = sp2 + (0.1 * np.sin(2 * np.pi * 10500 * t2)).astype(np.float32)
+    _, back, _ = enc("hybrid mono", hy_in, 1, 48000, 2.0, mode="hybrid",
+                     bitrate_kbps=64)
+    snr_hy = aligned_snr_db(hy_in, back.samples)
+    check(snr_hy > 11.0, f"hybrid round trip {snr_hy:.1f} dB")
+    t15 = np.arange(int(48000 * 1.5)) / 48000
+    chord = (0.2 * sum(np.sin(2 * np.pi * f * t15) for f in
+                       (220.0, 277.2, 329.6, 440.0))).astype(np.float32)
+    au_in = np.concatenate([chord, talk(3.0), chord])
+    _, back, _ = enc("auto mono", au_in, 1, 48000, 6.0, mode="auto",
+                     bitrate_kbps=24)
+    snr_au = snr_db(au_in, back.samples)
+    snr_tail = snr_db(au_in[-48000:], back.samples[-48000:])
+    check(back.sample_count == au_in.size and snr_au > 15.0
+          and snr_tail > 15.0, f"auto round trip {snr_au:.1f} / "
+          f"{snr_tail:.1f} dB")
+    check(fams["auto mono"] >= {"celt", "silk"},
+          f"auto picked {sorted(fams['auto mono'])}")
+    ref_celt, celt_cpu_s = cpu_celt.result()
+    check(buf_celt == ref_celt, "CELT from 48 kHz: card and CPU bytes differ")
+    for row in enc_rows:
+        log(f"  encoder {row['encoder']}: {row['audio_s']:.1f} s of audio in "
+            f"{row['host_s']:.3f} s on the host = {row['audio_s_per_s']:.2f} "
+            f"audio-s per s, {row['bytes']} bytes")
+    log(f"  round trips through load() on the card: CELT {snr_celt:.1f} dB, "
+        f"from 44.1 kHz {snr_441:.1f}, multistream {snr_ms:.1f} (worst "
+        f"channel), SILK {snr_silk:.1f} / stereo {snr_st:.1f}, hybrid "
+        f"{snr_hy:.1f}, auto {snr_au:.1f} (tail {snr_tail:.1f}, "
+        f"{sorted(fams['auto mono'])}); CELT bytes equal the CPU's "
+        f"({celt_cpu_s:.1f} s there)")
+
+    # in-band FEC on the card, against the clean decode and the CPU
+    clean, rec = fec_recovery(pkts, 1, dev)
+    g = float(np.dot(clean.ravel(), rec.ravel())
+              / max(np.dot(rec.ravel(), rec.ravel()), 1e-12))
+    snr_fec = snr_db(clean, g * rec)
+    (cclean, crec), _ = cpu_fec.result()
+    check(np.array_equal(rec, crec) and np.array_equal(clean, cclean),
+          "FEC: card and CPU recoveries differ")
+    check(snr_fec > 12.0, f"FEC recovery {snr_fec:.1f} dB")
+    log(f"  FEC: packet {FEC_LOST} of the SILK stream dropped, recovered "
+        f"from packet {FEC_LOST + 1}'s LBRR data on the card at "
+        f"{snr_fec:.1f} dB against the clean decode, equal to the CPU's "
+        f"recovery")
+
+    # Layer III outside the native decode, through load()
+    mp3_err = {}
+    for k, data in mp3s.items():
+        a = nqt.load(data, extension="mp3", device=dev)
+        r, _ = cpu_mp3[k].result()
+        check(a.samples.shape == r.shape and r.size > 0,
+              f"MP3 {k}: card and CPU shapes")
+        e = float(np.abs(a.samples - r).max())
+        check(e <= 1e-5 * max(1.0, float(np.abs(r).max())),
+              f"MP3 {k}: card vs CPU {e}")
+        mp3_err[k] = e
+    pool.shutdown()
+    log(f"  MP3 free-format and mixed-layer load() on the card: "
+        + ", ".join(f"{k} {e:.2e}" for k, e in mp3_err.items())
+        + " against the CPU")
+    launches = comb.comb_filter_cuda.launches
+    check(launches > 0, "the encoders' round trips launched no comb kernel")
+    phase_s = time.perf_counter() - t_phase
+    log(f"  phase 10 took {phase_s:.1f} s; K1 launches in the round trips "
+        f"{launches}; {card}")
+    return {"resample": src_rows, "float32_to_pcm": pcm_rows,
+            "encoders": enc_rows, "k1_launches": launches,
+            "snr_db": {"celt": snr_celt, "celt_441": snr_441,
+                       "multistream": snr_ms, "silk": snr_silk,
+                       "silk_stereo": snr_st, "hybrid": snr_hy,
+                       "auto": snr_au, "fec": snr_fec},
+            "mp3_err_vs_cpu": mp3_err, "phase_s": phase_s, "card": card}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -2160,12 +2576,16 @@ def main() -> int:
     lossless = phase8_lossless(nqt, card, dev)
     torch.cuda.empty_cache()
     general = phase9_opus_general(nqt, comb, card, dev)
+    torch.cuda.empty_cache()
+    encode = phase10_encode(nqt, comb, card, dev)
     for row in rows:
         if row["name"] == "comb_filter":
             row["launches_opus_general"] = general["k1_launches"]
+            row["launches_encode_round_trips"] = encode["k1_launches"]
     log(json.dumps({"serving": serve, "mp3": mp3, "mpc": mpc,
                     "vorbis": vorbis, "pcm": pcm_rows, "lossless": lossless,
-                    "opus_general": general, "card": card}))
+                    "opus_general": general, "encode": encode,
+                    "card": card}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": list(rows)}), flush=True)

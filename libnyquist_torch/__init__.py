@@ -8,7 +8,8 @@ Musepack and Vorbis the synthesis filterbanks as products; for PCM,
 FLAC and WavPack the sample conversion, the float normalization and the
 DSD decimation. Entry points take ``device=None`` and run on CUDA unless
 the caller passes another device (``device="cpu"`` runs the plain
-PyTorch versions).
+PyTorch versions). The encoders (``encoders.py``: WAV, AIFF and Ogg
+Opus) convert and resample on the device and code on the host.
 
 Importing the package builds nothing.
 """
@@ -23,10 +24,11 @@ from .errors import (
     UnsupportedExtensionError,
 )
 from .io import NyquistIO, is_file_supported, load
+from .ops.src import resample
 
 __all__ = [
     "AudioData", "PCMFormat", "NyquistIO", "load", "is_file_supported",
     "NyquistError", "DecodeError", "TruncatedDataError",
     "UnsupportedExtensionError", "LoadPathNotImplementedError",
-    "LoadBufferNotImplementedError",
+    "LoadBufferNotImplementedError", "resample",
 ]

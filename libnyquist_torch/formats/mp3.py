@@ -8,15 +8,18 @@ third_party/minimp3/minimp3.h — frame sync :296/:1703, Layer I/II
   (``native/mp3_stream.c``: sync, side info, bit reservoir,
   scalefactors, Huffman, stereo, reorder, antialias) emits
   frequency-domain granule planes and per-band IMDCT kinds;
-* Layer I/II: the frame decoder below (bit allocation, scale factors,
-  dequantization) emits time-domain band slices;
+* the frame decoder below, for the streams the native decode hands
+  back (free format, or Layer I/II frames anywhere): Layer III frames
+  through the per-frame route (side info, reservoir, scalefactors, the
+  native Huffman of ``native/mp3_huff.c``, stereo, reorder, antialias)
+  emit frequency-domain granules as the stream decode does; Layer I/II
+  frames (bit allocation, scale factors, dequantization) emit
+  time-domain band slices;
 * the dense synthesis (hybrid IMDCT and QMF polyphase as matmuls,
   ``ops/mp3_synth.py`` ``Mp3Synth``) runs on the device, one call per
   segment that starts from silence.
 
-Free-format Layer III streams are not decoded here: ``load()`` raises
-NotImplementedError naming their ROADMAP.md item. Normative tables are
-data (``data/mp3_tables.npz``).
+Normative tables are data (``data/mp3_tables.npz``).
 """
 
 from __future__ import annotations
@@ -38,11 +41,11 @@ _DATA = pathlib.Path(__file__).resolve().parents[1] / "data" / "mp3_tables.npz"
 MAX_FREE_FORMAT_FRAME_SIZE = 2304
 MAX_FRAME_SYNC_MATCHES = 10
 MAX_BITRESERVOIR_BYTES = 511
+SHORT_BLOCK_TYPE = 2
 MODE_MONO = 3
 MODE_JOINT_STEREO = 1
 HDR_SIZE = 4
-
-PYTHON_L3_ITEM = "ROADMAP.md, queue item 'MP3 and Musepack remainder'"
+MAX_SCFI = 48  # ((255 - 4 - 210) + 3) & ~3
 
 
 @functools.lru_cache(maxsize=1)
@@ -421,6 +424,337 @@ def _join(segs) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
+# Layer III by frame (minimp3.h L3_read_side_info :484 through
+# L3_antialias :1002), for the streams the native decode hands back
+# --------------------------------------------------------------------------
+class GrInfo:
+    __slots__ = (
+        "sfbtab", "part_23_length", "big_values", "scalefac_compress",
+        "global_gain", "block_type", "mixed_block_flag", "n_long_sfb",
+        "n_short_sfb", "table_select", "region_count", "subblock_gain",
+        "preflag", "scalefac_scale", "count1_table", "scfsi",
+    )
+
+
+def read_side_info(bs: Bits, hdr):
+    t = T()
+    sr_idx = hdr_get_my_sample_rate(hdr)
+    if sr_idx != 0:
+        sr_idx -= 1
+    gr_count = 1 if hdr_is_mono(hdr) else 2
+    scfsi = 0
+    if hdr_test_mpeg1(hdr):
+        gr_count *= 2
+        main_data_begin = bs.get(9)
+        scfsi = bs.get(7 + gr_count)
+    else:
+        main_data_begin = bs.get(8 + gr_count) >> gr_count
+    grs = []
+    part_23_sum = 0
+    remaining = gr_count
+    while remaining:
+        gr = GrInfo()
+        if hdr_is_mono(hdr):
+            scfsi <<= 4
+        gr.part_23_length = bs.get(12)
+        part_23_sum += gr.part_23_length
+        gr.big_values = bs.get(9)
+        if gr.big_values > 288:
+            raise DecodeError("big_values out of range")
+        gr.global_gain = bs.get(8)
+        gr.scalefac_compress = bs.get(4 if hdr_test_mpeg1(hdr) else 9)
+        gr.sfbtab = t["g_scf_long"][sr_idx]
+        gr.n_long_sfb = 22
+        gr.n_short_sfb = 0
+        gr.region_count = [0, 0, 255]
+        gr.subblock_gain = [0, 0, 0]
+        if bs.get(1):
+            gr.block_type = bs.get(2)
+            if not gr.block_type:
+                raise DecodeError("reserved block type")
+            gr.mixed_block_flag = bs.get(1)
+            gr.region_count[0] = 7
+            gr.region_count[1] = 255
+            if gr.block_type == SHORT_BLOCK_TYPE:
+                scfsi &= 0x0F0F
+                if not gr.mixed_block_flag:
+                    gr.region_count[0] = 8
+                    gr.sfbtab = t["g_scf_short"][sr_idx]
+                    gr.n_long_sfb = 0
+                    gr.n_short_sfb = 39
+                else:
+                    gr.sfbtab = t["g_scf_mixed"][sr_idx]
+                    gr.n_long_sfb = 8 if hdr_test_mpeg1(hdr) else 6
+                    gr.n_short_sfb = 30
+            tables = bs.get(10) << 5
+            gr.subblock_gain = [bs.get(3), bs.get(3), bs.get(3)]
+        else:
+            gr.block_type = 0
+            gr.mixed_block_flag = 0
+            tables = bs.get(15)
+            gr.region_count[0] = bs.get(4)
+            gr.region_count[1] = bs.get(3)
+            gr.region_count[2] = 255
+        gr.table_select = [
+            (tables >> 10) & 31, (tables >> 5) & 31, tables & 31
+        ]
+        gr.preflag = (
+            bs.get(1) if hdr_test_mpeg1(hdr)
+            else int(gr.scalefac_compress >= 500)
+        )
+        gr.scalefac_scale = bs.get(1)
+        gr.count1_table = bs.get(1)
+        gr.scfsi = (scfsi >> 12) & 15
+        scfsi = (scfsi << 4) & 0xFFFFFFFF
+        grs.append(gr)
+        remaining -= 1
+    if part_23_sum + bs.pos > bs.limit + main_data_begin * 8:
+        raise DecodeError("side info overruns frame")
+    return main_data_begin, grs
+
+
+def ldexp_q2(y, exp_q2):
+    g_expfrac = T()["g_expfrac"]
+    while True:
+        e = min(30 * 4, exp_q2)
+        y = y * (g_expfrac[e & 3] * (1 << (30 - (e >> 2))))
+        exp_q2 -= e
+        if exp_q2 <= 0:
+            return y
+
+
+def l3_read_scalefactors(ist_pos, scf_size, scf_count, bs: Bits, scfsi):
+    """L3_read_scalefactors: returns the scalefactors and updates
+    ``ist_pos`` in place segment by segment."""
+    scf = []
+    pos = 0
+    for i in range(4):
+        cnt = int(scf_count[i])
+        if cnt == 0:
+            break
+        if scfsi & 8:
+            scf.extend(ist_pos[pos : pos + cnt])
+        else:
+            bits = int(scf_size[i])
+            if bits == 0:
+                for k in range(cnt):
+                    ist_pos[pos + k] = 0
+                scf.extend([0] * cnt)
+            else:
+                max_scf = (1 << bits) - 1 if scfsi < 0 else -1
+                for k in range(cnt):
+                    s = bs.get(bits)
+                    ist_pos[pos + k] = 255 if s == max_scf else s  # uint8 -1
+                    scf.append(s)
+        pos += cnt
+        scfsi *= 2
+    scf.extend([0, 0, 0])
+    return scf
+
+
+def decode_scalefactors(hdr, ist_pos, bs: Bits, gr: GrInfo, ch):
+    t = T()
+    scf_partition = t["g_scf_partitions"][
+        (1 if gr.n_short_sfb else 0) + (1 if not gr.n_long_sfb else 0)
+    ]
+    scf_size = [0] * 4
+    scf_shift = gr.scalefac_scale + 1
+    scfsi = gr.scfsi
+    if hdr_test_mpeg1(hdr):
+        part = int(t["g_scfc_decode"][gr.scalefac_compress])
+        scf_size[0] = scf_size[1] = part >> 2
+        scf_size[2] = scf_size[3] = part & 3
+        counts = scf_partition
+    else:
+        g_mod = t["g_mod"]
+        ist = 1 if (hdr_test_i_stereo(hdr) and ch) else 0
+        sfc = gr.scalefac_compress >> ist
+        k = ist * 3 * 4
+        while sfc >= 0:
+            modprod = 1
+            for i in range(3, -1, -1):
+                scf_size[i] = (sfc // modprod) % int(g_mod[k + i])
+                modprod *= int(g_mod[k + i])
+            sfc -= modprod
+            k += 4
+        counts = scf_partition[k:]
+        scfsi = -16
+    iscf = l3_read_scalefactors(ist_pos, scf_size, counts, bs, scfsi)
+    iscf = list(iscf) + [0] * (40 - len(iscf))
+    if gr.n_short_sfb:
+        sh = 3 - scf_shift
+        for i in range(0, gr.n_short_sfb, 3):
+            iscf[gr.n_long_sfb + i + 0] += gr.subblock_gain[0] << sh
+            iscf[gr.n_long_sfb + i + 1] += gr.subblock_gain[1] << sh
+            iscf[gr.n_long_sfb + i + 2] += gr.subblock_gain[2] << sh
+    elif gr.preflag:
+        g_preamp = t["g_preamp"]
+        for i in range(10):
+            iscf[11 + i] += int(g_preamp[i])
+    gain_exp = gr.global_gain - 4 - 210 - (2 if hdr_is_ms_stereo(hdr) else 0)
+    gain = ldexp_q2(float(1 << (MAX_SCFI // 4)), MAX_SCFI - gain_exp)
+    n = gr.n_long_sfb + gr.n_short_sfb
+    return np.array(
+        [ldexp_q2(gain, iscf[i] << scf_shift) for i in range(n)],
+        dtype=np.float32,
+    )
+
+
+@functools.lru_cache(maxsize=1)
+def _huffman_tables():
+    t = T()
+    arrs = {k: np.ascontiguousarray(t[k], np.int32)
+            for k in ("tabs", "tab32", "tab33", "tabindex", "g_linbits")}
+    arrs["g_pow43"] = np.ascontiguousarray(t["g_pow43"], np.float64)
+    return arrs
+
+
+def l3_huffman(dst, bs: Bits, gr: GrInfo, scf, layer3gr_limit):
+    """L3_huffman in C (``native/mp3_huff.c``): dequantized spectrum of
+    one granule-channel into ``dst`` [576]; ``bs`` moves to the limit."""
+    from ..runtime import native
+
+    L = native.codec_lib()
+    nt = _huffman_tables()
+    buf = bytes(bs.buf) + b"\x00" * 8
+    sfb = np.ascontiguousarray(gr.sfbtab, np.int32)
+    scfa = np.ascontiguousarray(scf, np.float64)
+    ts = np.ascontiguousarray(gr.table_select, np.int32)
+    rc = np.ascontiguousarray(gr.region_count, np.int32)
+    L.mp3_l3_huffman(
+        dst.ctypes.data, buf, len(bs.buf), bs.pos,
+        nt["tabs"].ctypes.data, nt["tab32"].ctypes.data,
+        nt["tab33"].ctypes.data, nt["tabindex"].ctypes.data,
+        nt["g_linbits"].ctypes.data, nt["g_pow43"].ctypes.data,
+        sfb.ctypes.data, scfa.ctypes.data, int(gr.big_values),
+        ts.ctypes.data, rc.ctypes.data, int(gr.count1_table),
+        int(layer3gr_limit), nt["tabs"].size,
+    )
+    bs.pos = layer3gr_limit
+
+
+def midside_stereo(grbuf, n):
+    a = grbuf[0][:n].copy()
+    b = grbuf[1][:n].copy()
+    grbuf[0][:n] = a + b
+    grbuf[1][:n] = a - b
+
+
+def stereo_top_band(right, sfb, nbands):
+    max_band = [-1, -1, -1]
+    pos = 0
+    for i in range(nbands):
+        ln = int(sfb[i])
+        for k in range(0, ln, 2):
+            if right[pos + k] != 0 or right[pos + k + 1] != 0:
+                max_band[i % 3] = i
+                break
+        pos += ln
+    return max_band
+
+
+def stereo_process(grbuf, ist_pos, sfb, hdr, max_band, mpeg2_sh):
+    g_pan = T()["g_pan"]
+    max_pos = 7 if hdr_test_mpeg1(hdr) else 64
+    pos = 0
+    i = 0
+    while sfb[i]:
+        ipos = ist_pos[i]
+        ln = int(sfb[i])
+        if i > max_band[i % 3] and ipos < max_pos:
+            s = np.sqrt(2.0) if hdr_test_ms_stereo(hdr) else 1.0
+            if hdr_test_mpeg1(hdr):
+                kl = g_pan[2 * ipos]
+                kr = g_pan[2 * ipos + 1]
+            else:
+                kl = 1.0
+                kr = ldexp_q2(1.0, ((ipos + 1) >> 1) << mpeg2_sh)
+                if ipos & 1:
+                    kl, kr = kr, 1.0
+            left = grbuf[0][pos : pos + ln].copy()
+            grbuf[1][pos : pos + ln] = left * (kr * s)
+            grbuf[0][pos : pos + ln] = left * (kl * s)
+        elif hdr_test_ms_stereo(hdr):
+            a = grbuf[0][pos : pos + ln].copy()
+            b = grbuf[1][pos : pos + ln].copy()
+            grbuf[0][pos : pos + ln] = a + b
+            grbuf[1][pos : pos + ln] = a - b
+        pos += ln
+        i += 1
+
+
+def intensity_stereo(grbuf, ist_pos, gr_pair, hdr):
+    gr = gr_pair[0]
+    n_sfb = gr.n_long_sfb + gr.n_short_sfb
+    max_blocks = 3 if gr.n_short_sfb else 1
+    max_band = stereo_top_band(grbuf[1], gr.sfbtab, n_sfb)
+    if gr.n_long_sfb:
+        mb = max(max_band)
+        max_band = [mb, mb, mb]
+    for i in range(max_blocks):
+        default_pos = 3 if hdr_test_mpeg1(hdr) else 0
+        itop = n_sfb - max_blocks + i
+        prev = itop - max_blocks
+        ist_pos[itop] = default_pos if max_band[i] >= prev else ist_pos[prev]
+    stereo_process(grbuf, ist_pos, gr.sfbtab, hdr, max_band,
+                   gr_pair[1].scalefac_compress & 1)
+
+
+def reorder(grbuf, offset, sfb):
+    dst = []
+    src = offset
+    i = 0
+    while sfb[i]:
+        ln = int(sfb[i])
+        for k in range(ln):
+            dst.append(grbuf[src + k + 0 * ln])
+            dst.append(grbuf[src + k + 1 * ln])
+            dst.append(grbuf[src + k + 2 * ln])
+        src += 3 * ln
+        i += 3
+    grbuf[offset : offset + len(dst)] = dst
+
+
+def antialias(grbuf, nbands):
+    """The butterflies across each band boundary below ``nbands``."""
+    if nbands <= 0:
+        return
+    g_aa = T()["g_aa"]
+    v = grbuf[: 18 * (nbands + 1)].reshape(nbands + 1, 18)
+    u = v[1 : nbands + 1, 0:8].copy()
+    d = v[0:nbands, 10:18][:, ::-1].copy()
+    v[1 : nbands + 1, 0:8] = u * g_aa[0] - d * g_aa[1]
+    v[0:nbands, 10:18] = (u * g_aa[1] + d * g_aa[0])[:, ::-1]
+
+
+def l3_decode_granule(bs: Bits, grs, nch, hdr, grbuf, ist_pos):
+    """One granule's channels (L3_decode): scalefactors, Huffman, stereo,
+    reorder and antialias into ``grbuf`` [2, 576]; returns its band kinds
+    [2, 32]. ``ist_pos`` persists across the frame's granules (scfsi
+    sharing copies granule 0's scalefactors into granule 1)."""
+    for ch in range(nch):
+        layer3gr_limit = bs.pos + grs[ch].part_23_length
+        scf = decode_scalefactors(hdr, ist_pos[ch], bs, grs[ch], ch)
+        l3_huffman(grbuf[ch], bs, grs[ch], scf, layer3gr_limit)
+    if hdr_test_i_stereo(hdr):
+        intensity_stereo(grbuf, ist_pos[1], grs, hdr)
+    elif hdr_is_ms_stereo(hdr):
+        midside_stereo(grbuf, 576)
+    kinds = np.zeros((2, 32), np.int8)
+    for ch in range(nch):
+        gr = grs[ch]
+        aa_bands = 31
+        n_long_bands = (2 if gr.mixed_block_flag else 0) << (
+            1 if hdr_get_my_sample_rate(hdr) == 2 else 0)
+        if gr.n_short_sfb:
+            aa_bands = n_long_bands - 1
+            reorder(grbuf[ch], n_long_bands * 18, gr.sfbtab[gr.n_long_sfb:])
+        antialias(grbuf[ch], aa_bands)
+        kinds[ch] = mp3_synth.band_kinds(gr.block_type, n_long_bands)
+    return kinds
+
+
+# --------------------------------------------------------------------------
 # Layer I/II (minimp3.h:317-481)
 # --------------------------------------------------------------------------
 _BITALLOC_CODE_TAB = [
@@ -558,26 +892,29 @@ def l12_apply_scf_384(sci, igr, grbuf):
 
 
 class Mp3Decoder:
-    """Frame decoder state of the Layer I/II path: the last header, the
-    free-format size, and an epoch that counts resets (a reset sends the
-    synthesis back to silence, so the caller starts a new segment)."""
+    """Frame decoder state: the last header, the free-format size, the
+    Layer III bit reservoir, and an epoch that counts resets (a reset
+    sends the synthesis back to silence, so the caller starts a new
+    segment)."""
 
     def __init__(self):
-        self.header = bytes(4)
-        self.free_format_bytes = 0
-        self.epoch = 0
+        self.epoch = -1
+        self._reset()
 
     def _reset(self):
         self.header = bytes(4)
         self.free_format_bytes = 0
+        self.reserv = 0
+        self.reserv_buf = bytearray(MAX_BITRESERVOIR_BYTES)
         self.epoch += 1
 
     def decode_frame(self, data: bytes):
         """Decode one frame. Returns (granules or None, bytes consumed,
-        channels, hz): granules is a list of time-domain [2, 576] band
-        slice buffers (nbands 12 each), None when the frame failed or no
-        frame was found. A Layer III frame raises NotImplementedError:
-        only free-format or mixed-layer streams reach this loop."""
+        channels, hz): granules is a list of (buffer [2, 576], nbands,
+        kinds) — frequency-domain planes with their band kinds [2, 32]
+        for Layer III (nbands 18), time-domain band slices with kinds
+        None for Layer I/II (nbands 12) — or None when the frame failed
+        or no frame was found."""
         i = 0
         frame_size = 0
         if len(data) > 4 and self.header[0:1] == b"\xff" and hdr_compare(
@@ -602,13 +939,12 @@ class Mp3Decoder:
         channels = 1 if hdr_is_mono(hdr) else 2
         hz = hdr_sample_rate_hz(hdr)
         layer = 4 - hdr_get_layer(hdr)
-        if layer == 3:
-            raise NotImplementedError(
-                "MP3 Layer III frames the native stream decode hands "
-                f"back (free format, mixed layers): see {PYTHON_L3_ITEM}")
-        bs = Bits(data[i + HDR_SIZE : i + frame_size])
+        bs = Bits(bytes(data[i + HDR_SIZE : i + frame_size]))
         if hdr_is_crc(hdr):
             bs.get(16)
+        if layer == 3:
+            return self._decode_l3(bs, hdr, channels), i + frame_size, \
+                channels, hz
         sci = l12_read_scale_info(hdr, bs)
         group_size = layer | 1          # L1 -> 1, L2 -> 3
         grbuf = np.zeros((2, 576), np.float32)
@@ -620,31 +956,68 @@ class Mp3Decoder:
             if i_off == 12:
                 i_off = 0
                 l12_apply_scf_384(sci, igr, grbuf)
-                out.append(grbuf.copy())
+                out.append((grbuf.copy(), 12, None))
                 grbuf[:] = 0
             if bs.pos > bs.limit:
                 self._reset()
                 return None, i + frame_size, channels, hz
         return out, i + frame_size, channels, hz
 
+    def _decode_l3(self, bs: Bits, hdr, channels):
+        """A Layer III frame: side info, the main data behind the bit
+        reservoir, its granules (None when the reservoir is short of
+        main_data_begin or the side info is invalid), then the reservoir
+        kept for the next frame."""
+        try:
+            main_data_begin, grs = read_side_info(bs, hdr)
+        except DecodeError:
+            self._reset()
+            return None
+        frame_bytes = (bs.limit - bs.pos) // 8
+        bytes_have = min(self.reserv, main_data_begin)
+        start = max(0, self.reserv - main_data_begin)
+        maindata = (bytes(self.reserv_buf[start : start + bytes_have])
+                    + bs.buf[bs.pos // 8 : bs.pos // 8 + frame_bytes])
+        mbs = Bits(maindata)
+        out = None
+        if self.reserv >= main_data_begin:
+            out = []
+            ist_pos = np.zeros((2, 40), np.int32)
+            for igr in range(2 if hdr_test_mpeg1(hdr) else 1):
+                grbuf = np.zeros((2, 576), np.float32)
+                kinds = l3_decode_granule(mbs, grs[igr * channels:],
+                                          channels, hdr, grbuf, ist_pos)
+                out.append((grbuf, 18, kinds))
+        pos = (mbs.pos + 7) // 8
+        remains = mbs.limit // 8 - pos
+        if remains > MAX_BITRESERVOIR_BYTES:
+            pos += remains - MAX_BITRESERVOIR_BYTES
+            remains = MAX_BITRESERVOIR_BYTES
+        if remains > 0:
+            self.reserv_buf[:remains] = maindata[pos : pos + remains]
+        self.reserv = max(0, remains)
+        return out
+
 
 def _decode_mp3_buffer_frames(data: bytes, device):
     """The frame loop for streams the native decode hands back (flag 4):
-    Layer I/II frames collect their time-domain buffers per segment, and
-    each segment (broken by decoder resets and by channel changes)
-    synthesizes on the device from silence with nbands = 12."""
+    free-format Layer III and Layer I/II frames collect their granule
+    buffers per segment, and each segment (broken by decoder resets and
+    by (nbands, channels) changes) synthesizes on the device from
+    silence."""
     dec = Mp3Decoder()
     pos = 0
     segs = []
-    cur_g = []
-    cur_ch = channels = hz = 0
+    cur_g, cur_k = [], []
+    cur_nb = cur_ch = channels = hz = 0
 
     def flush():
-        nonlocal cur_g
+        nonlocal cur_g, cur_k
         if cur_g:
-            segs.append(_synth_segment(np.stack(cur_g), None, 12, cur_ch,
-                                       device))
-            cur_g = []
+            kinds = None if cur_k[0] is None else np.stack(cur_k)
+            segs.append(_synth_segment(np.stack(cur_g), kinds, cur_nb,
+                                       cur_ch, device))
+            cur_g, cur_k = [], []
 
     view = memoryview(data)
     while pos < len(data):
@@ -658,10 +1031,12 @@ def _decode_mp3_buffer_frames(data: bytes, device):
         if grans is None:
             continue    # failed frame: its partial granules are dropped
         channels, hz = ch, rate
-        if cur_g and ch != cur_ch:
-            flush()
-        cur_ch = ch
-        cur_g.extend(grans)
+        for g, nb, kinds in grans:
+            if cur_g and (nb != cur_nb or ch != cur_ch):
+                flush()
+            cur_nb, cur_ch = nb, ch
+            cur_g.append(g)
+            cur_k.append(kinds)
     flush()
     if not segs:
         raise DecodeError("no decodable MP3 frames found")
@@ -670,7 +1045,7 @@ def _decode_mp3_buffer_frames(data: bytes, device):
 
 def decode_mp3_buffer(data: bytes, audio: AudioData, device) -> None:
     """Whole-buffer decode into ``audio``: Layer III through the native
-    stream decode, Layer I/II through the frame loop; the synthesis runs
+    stream decode, what it hands back through the frame loop; the synthesis runs
     on ``device`` and the PCM comes back in one copy."""
     out = _decode_mp3_buffer_native(data, device)
     if out is None:

@@ -8,7 +8,8 @@ op_pcm_total :1711). Implemented from the Ogg page structure itself:
 27-byte header, segment lacing table, 255-terminated packet continuation.
 
 Pure-Python byte shuffling: this layer is control flow, not compute.
-The port's copy keeps the demux half only (no CRC check, no muxer).
+The port's copy keeps the demux half (without the CRC check) and the
+page writer the Opus encoders mux with.
 """
 
 from __future__ import annotations
@@ -158,3 +159,55 @@ def first_stream_matching(
         if st.packets and st.packets[0].data.startswith(magic):
             return st
     return None
+
+
+_CRC_TABLE = None
+
+
+def _ogg_crc(data: bytes) -> int:
+    """Ogg CRC32: polynomial 0x04c11db7, no pre/post inversion, MSB-first."""
+    global _CRC_TABLE
+    if _CRC_TABLE is None:
+        table = []
+        for i in range(256):
+            r = i << 24
+            for _ in range(8):
+                r = ((r << 1) ^ 0x04C11DB7) if (r & 0x80000000) else (r << 1)
+                r &= 0xFFFFFFFF
+            table.append(r)
+        _CRC_TABLE = table
+    crc = 0
+    for b in data:
+        crc = ((crc << 8) & 0xFFFFFFFF) ^ _CRC_TABLE[((crc >> 24) & 0xFF) ^ b]
+    return crc
+
+
+def write_page(packet: bytes, granule: int, serial: int, seq: int,
+               bos: bool = False, eos: bool = False) -> bytes:
+    """Serialize one Ogg page holding one packet (RFC 3533)."""
+    return write_page_multi([packet], granule, serial, seq, bos, eos)
+
+
+def write_page_multi(packets, granule: int, serial: int, seq: int,
+                     bos: bool = False, eos: bool = False) -> bytes:
+    """Serialize one Ogg page holding several whole packets (the mux
+    dual of parse_pages)."""
+    lacing = []
+    body = bytearray()
+    for packet in packets:
+        n = len(packet)
+        while True:
+            lacing.append(min(n, 255))
+            n -= lacing[-1]
+            if lacing[-1] < 255:
+                break
+        body.extend(packet)
+    if len(lacing) > 255:
+        raise ValueError("too many segments for one Ogg page")
+    header = struct.pack(
+        "<4sBBqIIIB", b"OggS", 0, (2 if bos else 0) | (4 if eos else 0),
+        granule, serial, seq, 0, len(lacing),
+    ) + bytes(lacing)
+    page = header + bytes(body)
+    crc = _ogg_crc(page)
+    return page[:22] + struct.pack("<I", crc) + page[26:]

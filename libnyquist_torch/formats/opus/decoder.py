@@ -44,9 +44,6 @@ from .packet import (
 from .range_coder import RangeDecoder
 from .silk import NativeSilkDecoder
 
-FEC_ITEM = ("Opus in-band FEC (decode_packet(fec=True)): see ROADMAP.md, "
-            "queue item 'Opus in-band FEC'")
-
 
 class OpusDecoder:
     """Single-stream Opus decoder producing 48 kHz float32 PCM on
@@ -86,11 +83,43 @@ class OpusDecoder:
                       fec: bool = False) -> torch.Tensor:
         """Decode one packet -> [samples, channels] float32 at 48 kHz.
         data=None (or empty) conceals one packet duration (reference:
-        opus_decode with data==NULL)."""
+        opus_decode with data==NULL).
+
+        fec=True recovers the previous (lost) frame from this packet's
+        in-band LBRR data instead (opus_decode(..., decode_fec=1)): a
+        SILK-only packet, one 10 or 20 ms frame, decoded on the SILK
+        state the stream has built up."""
         if fec:
-            raise NotImplementedError(FEC_ITEM)
+            out = self._decode_fec(data)
+            self._last_pcm = out
+            self._pending.append(self._host_mix(out))
+            return self.flush()
         self.push_packet(data)
         return self.flush()
+
+    def _decode_fec(self, data: Optional[bytes]) -> np.ndarray:
+        if not data:
+            raise DecodeError("FEC recovery needs the next packet")
+        pkt = parse_packet(data)
+        if pkt.mode != MODE_SILK_ONLY:
+            raise DecodeError("in-band FEC lives in SILK packets")
+        if self.silk is None:
+            self.silk = NativeSilkDecoder(self.channels)
+        if self.bandwidth == BW_NARROWBAND:
+            internal_rate = 8000
+        elif self.bandwidth == BW_MEDIUMBAND:
+            internal_rate = 12000
+        else:
+            internal_rate = 16000
+        payload_ms = max(10, 1000 * pkt.frame_size // self.Fs)
+        out = self.silk.decode_fec(pkt.frames[0], self.stream_channels or 1,
+                                   internal_rate, payload_ms) / 32768.0
+        if out.shape[1] != self.channels:
+            out = (np.repeat(out[:, :1], self.channels, axis=1)
+                   if out.shape[1] < self.channels else
+                   out[:, : self.channels])
+        self.loss_count = 0
+        return out
 
     def push_packet(self, data: Optional[bytes]) -> int:
         """Queue one packet's decode; returns its sample count. The

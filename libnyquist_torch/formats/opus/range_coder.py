@@ -1,9 +1,10 @@
-"""Opus/CELT range (entropy) decoder, RFC 6716 §4.1.
+"""Opus/CELT range (entropy) coder, RFC 6716 §4.1.
 
-The port's copy of the decoder half (reference: celt/entdec.c,
-entcode.c), shared by the per-frame CELT decode and the native SILK
-decode of a hybrid frame: the native calls take its ten-word state and
-hand it back (``formats/opus/celt_frame.py`` ``ec_pack``). The
+The port's copy of the decoder (reference: celt/entdec.c, entcode.c),
+shared by the per-frame CELT decode and the native SILK decode of a
+hybrid frame: the native calls take its ten-word state and hand it back
+(``formats/opus/celt_frame.py`` ``ec_pack``); and of its dual, the
+encoder the host Opus encoders write with (celt/entenc.c). The
 byte-serial front half of every Opus frame stays on the host.
 
 Semantics match the reference exactly: 8-bit symbols, 32-bit code
@@ -171,6 +172,195 @@ class RangeDecoder:
 
     def tell_frac(self) -> int:
         """Bits used so far in Q3 (1/8 bit), per entcode.c ec_tell_frac."""
+        nbits = self.nbits_total << BITRES
+        l = ilog(self.rng)
+        r = self.rng >> (l - 16)
+        for _ in range(BITRES):
+            r = (r * r) >> 15
+            b = r >> 16
+            l = (l << 1) | b
+            r >>= b
+        return nbits - l
+
+
+CODE_SHIFT = CODE_BITS - SYM_BITS - 1  # 23
+
+
+class RangeEncoder:
+    """RFC 6716 §4.1 range encoder (reference: celt/entenc.c semantics),
+    the exact dual of RangeDecoder — used by the encoder side."""
+
+    __slots__ = (
+        "buf", "storage", "offs", "end_offs", "end_window", "nend_bits",
+        "nbits_total", "rng", "rem", "val", "ext", "error",
+    )
+
+    def __init__(self, size: int):
+        self.buf = bytearray(size)
+        self.storage = size
+        self.offs = 0
+        self.end_offs = 0
+        self.end_window = 0
+        self.nend_bits = 0
+        self.nbits_total = CODE_BITS + 1
+        self.rng = CODE_TOP
+        self.rem = -1
+        self.val = 0
+        self.ext = 0
+        self.error = 0
+
+    # -- byte sinks ---------------------------------------------------------
+    def _write_byte(self, value: int) -> int:
+        if self.offs + self.end_offs >= self.storage:
+            return -1
+        self.buf[self.offs] = value & 0xFF
+        self.offs += 1
+        return 0
+
+    def _write_byte_at_end(self, value: int) -> int:
+        if self.offs + self.end_offs >= self.storage:
+            return -1
+        self.end_offs += 1
+        self.buf[self.storage - self.end_offs] = value & 0xFF
+        return 0
+
+    # -- core ---------------------------------------------------------------
+    def _carry_out(self, c: int) -> None:
+        if c != SYM_MAX:
+            carry = c >> SYM_BITS
+            if self.rem >= 0:
+                self.error |= self._write_byte(self.rem + carry)
+            if self.ext > 0:
+                sym = (SYM_MAX + carry) & SYM_MAX
+                while self.ext > 0:
+                    self.error |= self._write_byte(sym)
+                    self.ext -= 1
+            self.rem = c & SYM_MAX
+        else:
+            self.ext += 1
+
+    def _normalize(self) -> None:
+        while self.rng <= CODE_BOT:
+            self._carry_out(self.val >> CODE_SHIFT)
+            self.val = (self.val << SYM_BITS) & (CODE_TOP - 1)
+            self.rng = (self.rng << SYM_BITS) & 0xFFFFFFFF
+            self.nbits_total += SYM_BITS
+
+    def encode(self, fl: int, fh: int, ft: int) -> None:
+        fl, fh, ft = int(fl), int(fh), int(ft)
+        r = self.rng // ft
+        if fl > 0:
+            self.val += self.rng - r * (ft - fl)
+            self.rng = r * (fh - fl)
+        else:
+            self.rng -= r * (ft - fh)
+        self._normalize()
+
+    def encode_bin(self, fl: int, fh: int, bits: int) -> None:
+        fl, fh, bits = int(fl), int(fh), int(bits)
+        r = self.rng >> bits
+        if fl > 0:
+            self.val += self.rng - r * ((1 << bits) - fl)
+            self.rng = r * (fh - fl)
+        else:
+            self.rng -= r * ((1 << bits) - fh)
+        self._normalize()
+
+    def enc_bit_logp(self, val: int, logp: int) -> None:
+        r = self.rng
+        s = r >> int(logp)
+        r -= s
+        if val:
+            self.val += r
+        self.rng = s if val else r
+        self._normalize()
+
+    def enc_icdf(self, s: int, icdf, ftb: int) -> None:
+        s = int(s)
+        r = self.rng >> int(ftb)
+        if s > 0:
+            self.val += self.rng - r * int(icdf[s - 1])
+            self.rng = r * (int(icdf[s - 1]) - int(icdf[s]))
+        else:
+            self.rng -= r * int(icdf[s])
+        self._normalize()
+
+    def enc_uint(self, fl: int, ft: int) -> None:
+        fl, ft = int(fl), int(ft)
+        assert ft > 1
+        ft -= 1
+        ftb = ilog(ft)
+        if ftb > UINT_BITS:
+            ftb -= UINT_BITS
+            ft_hi = (ft >> ftb) + 1
+            fl_hi = fl >> ftb
+            self.encode(fl_hi, fl_hi + 1, ft_hi)
+            self.enc_bits(fl & ((1 << ftb) - 1), ftb)
+        else:
+            self.encode(fl, fl + 1, ft + 1)
+
+    def enc_bits(self, fl: int, bits: int) -> None:
+        fl, bits = int(fl), int(bits)
+        window = self.end_window
+        used = self.nend_bits
+        if used + bits > WINDOW_SIZE:
+            while used >= SYM_BITS:
+                self.error |= self._write_byte_at_end(window & SYM_MAX)
+                window >>= SYM_BITS
+                used -= SYM_BITS
+        window |= fl << used
+        used += bits
+        self.end_window = window
+        self.nend_bits = used
+        self.nbits_total += bits
+
+    def enc_shrink(self, size: int) -> None:
+        assert self.offs + self.end_offs <= size
+        self.buf[size - self.end_offs : size] = self.buf[
+            self.storage - self.end_offs : self.storage
+        ]
+        self.storage = size
+        del self.buf[size:]
+
+    def done(self) -> bytes:
+        l = CODE_BITS - ilog(self.rng)
+        msk = (CODE_TOP - 1) >> l
+        end = (self.val + msk) & ~msk
+        if (end | msk) >= self.val + self.rng:
+            l += 1
+            msk >>= 1
+            end = (self.val + msk) & ~msk
+        while l > 0:
+            self._carry_out(end >> CODE_SHIFT)
+            end = (end << SYM_BITS) & (CODE_TOP - 1)
+            l -= SYM_BITS
+        if self.rem >= 0 or self.ext > 0:
+            self._carry_out(0)
+        window = self.end_window
+        used = self.nend_bits
+        while used >= SYM_BITS:
+            self.error |= self._write_byte_at_end(window & SYM_MAX)
+            window >>= SYM_BITS
+            used -= SYM_BITS
+        if not self.error:
+            for i in range(self.offs, self.storage - self.end_offs):
+                self.buf[i] = 0
+            if used > 0:
+                if self.end_offs >= self.storage:
+                    self.error = -1
+                else:
+                    l = -l
+                    if (self.offs + self.end_offs >= self.storage
+                            and l < used):
+                        window &= (1 << l) - 1
+                        self.error = -1
+                    self.buf[self.storage - self.end_offs - 1] |= window & 0xFF
+        return bytes(self.buf)
+
+    def tell(self) -> int:
+        return self.nbits_total - ilog(self.rng)
+
+    def tell_frac(self) -> int:
         nbits = self.nbits_total << BITRES
         l = ilog(self.rng)
         r = self.rng >> (l - 16)

@@ -55,3 +55,19 @@ def nlsf_cb_wb() -> NLSFCodebook:
 @functools.lru_cache(maxsize=1)
 def nlsf_cb_nb_mb() -> NLSFCodebook:
     return NLSFCodebook(tables(), "NLSF_CB_NB_MB")
+
+
+# Constants (silk/define.h, gain_quant.c, stereo)
+SHELL_FRAME = 16
+MAX_PULSES = 16
+N_RATE_LEVELS = 10
+QUANT_LEVEL_ADJUST_Q10 = 80
+MIN_DELTA_GAIN_QUANT = -4
+MAX_DELTA_GAIN_QUANT = 36
+N_LEVELS_QGAIN = 64
+GAIN_OFFSET = ((2 * 128) // 6) + 16 * 128          # (MIN_QGAIN_DB*128)/6+16*128
+GAIN_INV_SCALE_Q16 = (65536 * (((88 - 2) * 128) // 6)) // (N_LEVELS_QGAIN - 1)
+NLSF_QUANT_MAX_AMPLITUDE = 4
+NLSF_QUANT_LEVEL_ADJ_Q10 = 102                      # 0.1 in Q10 (FIX_CONST)
+NLSF_W_Q = 2
+STEREO_INTERP_LEN_MS = 8

@@ -1828,6 +1828,91 @@ static void stereo_ms_to_lr(stereo_io *s, int64_t *x1, int64_t *x2,
     }
 }
 
+/* ---------------- in-band FEC ----------------- */
+
+/* One LBRR frame decoded as decode_frame.c does under FLAG_DECODE_LBRR:
+   the indices and pulses are already read; parameters, core, the PLC
+   state update, the output buffer, glue and CNG follow. */
+static void decode_lbrr_frame(chan_state *st, int cond_coding,
+                              const int *pulses, int64_t *xq)
+{
+    frame_params params;
+    int mv, i;
+    decode_parameters(st, cond_coding, &params);
+    decode_core(st, &params, pulses, xq);
+    silk_plc(st, &params, xq, 0);
+    st->lossCnt = 0;
+    st->prevSignalType = st->ind.signalType;
+    st->first_frame_after_reset = 0;
+    mv = st->ltp_mem_length - st->frame_length;
+    for (i = 0; i < mv; i++)
+        st->outBuf[i] = st->outBuf[st->frame_length + i];
+    for (i = 0; i < st->frame_length; i++)
+        st->outBuf[mv + i] = xq[i];
+    plc_glue(st, xq, st->frame_length);
+    silk_cng(st, &params, xq, st->frame_length);
+    st->lagPrev = params.pitchL[st->nb_subfr - 1];
+}
+
+/* The recovered frame at 48 kHz: stereo through the mid/side predictor
+   of LBRR frame 0 when both channels carry one, else the mid channel
+   with the regular path's one-sample delay, on every API channel.
+   Returns n_out, or -2 when the packet carries no LBRR frame. */
+static int64_t fec_output(silk_state *s, int n_channels_internal,
+                          const int *have, int64_t (*xq)[MAX_FRAME_LENGTH],
+                          const int64_t *pred_q13, int16_t *out)
+{
+    chan_state *cs = s->ch;
+    int frame_len = cs[0].frame_length;
+    int n_out = frame_len * 48 / cs[0].fs_kHz;
+    int64_t samples1[2][MAX_FRAME_LENGTH + 2];
+    int32_t xin[MAX_FRAME_LENGTH + 2];
+    int32_t res[MAX_FRAME_LENGTH * 6];
+    int n, i, nres, c;
+    if (!have[0]) return -2;
+    memset(samples1, 0, sizeof(samples1));
+    if (s->nChannelsAPI == 2 && n_channels_internal == 2 && have[1]) {
+        stereo_io sio;
+        for (n = 0; n < 2; n++)
+            for (i = 0; i < frame_len; i++)
+                samples1[n][2 + i] = xq[n][i];
+        sio.pred_prev_Q13[0] = s->stereo_pred_prev[0];
+        sio.pred_prev_Q13[1] = s->stereo_pred_prev[1];
+        sio.sMid[0] = s->sMid[0];
+        sio.sMid[1] = s->sMid[1];
+        sio.sSide[0] = s->sSide[0];
+        sio.sSide[1] = s->sSide[1];
+        stereo_ms_to_lr(&sio, samples1[0], samples1[1], pred_q13,
+                        cs[0].fs_kHz, frame_len);
+        s->stereo_pred_prev[0] = sio.pred_prev_Q13[0];
+        s->stereo_pred_prev[1] = sio.pred_prev_Q13[1];
+        s->sMid[0] = sio.sMid[0];
+        s->sMid[1] = sio.sMid[1];
+        s->sSide[0] = sio.sSide[0];
+        s->sSide[1] = sio.sSide[1];
+        for (n = 0; n < 2; n++) {
+            for (i = 0; i < frame_len; i++)
+                xin[i] = (int32_t)samples1[n][1 + i];
+            nres = resampler_process(&cs[n].rs, xin, frame_len, res);
+            for (i = 0; i < n_out; i++)
+                out[i * 2 + n] = (int16_t)(i < nres ? res[i] : 0);
+            cs[n].nFramesDecoded++;
+        }
+        return n_out;
+    }
+    xin[0] = (int32_t)s->sMid[1];
+    for (i = 1; i < frame_len; i++)
+        xin[i] = (int32_t)xq[0][i - 1];
+    s->sMid[0] = xq[0][frame_len - 2];
+    s->sMid[1] = xq[0][frame_len - 1];
+    nres = resampler_process(&cs[0].rs, xin, frame_len, res);
+    for (i = 0; i < n_out; i++)
+        for (c = 0; c < s->nChannelsAPI; c++)
+            out[i * s->nChannelsAPI + c] = (int16_t)(i < nres ? res[i] : 0);
+    cs[0].nFramesDecoded++;
+    return n_out;
+}
+
 /* ---------------- top-level decoder ---------- */
 
 void *silk_create(int channels)
@@ -1848,7 +1933,7 @@ void silk_free(void *h) { free(h); }
 static int64_t silk_decode_one(silk_state *s, ecdec *dec,
                                int n_channels_internal, int internal_rate,
                                int payload_ms, int new_packet,
-                               int16_t *out, int lost)
+                               int16_t *out, int lost, int fec)
 {
     chan_state *cs = s->ch;
     int64_t ms_pred_q13[2] = {0, 0};
@@ -1856,6 +1941,9 @@ static int64_t silk_decode_one(silk_state *s, ecdec *dec,
     int n, i, has_side, frame_len, n_out;
     int64_t samples1[2][MAX_FRAME_LENGTH + 2];
     stereo_io sio;
+    int fec_have[2] = {0, 0};
+    int64_t fec_xq[2][MAX_FRAME_LENGTH];
+    int64_t fec_pred_q13[2] = {0, 0};
 
     if (new_packet)
         for (n = 0; n < n_channels_internal; n++)
@@ -1923,7 +2011,9 @@ static int64_t silk_decode_one(silk_state *s, ecdec *dec,
                 }
             }
         }
-        /* skip LBRR data */
+        /* LBRR data: skipped on the normal path; on a recovery call
+           (dec_API.c FLAG_DECODE_LBRR) the first LBRR frame of each
+           channel is decoded in full and returned below */
         for (i = 0; i < cs[0].nFramesPerPacket; i++) {
             for (n = 0; n < n_channels_internal; n++) {
                 if (cs[n].LBRR_flags[i]) {
@@ -1932,6 +2022,10 @@ static int64_t silk_decode_one(silk_state *s, ecdec *dec,
                     if (n_channels_internal == 2 && n == 0) {
                         int64_t tmp_pred[2];
                         stereo_decode_pred(dec, tmp_pred);
+                        if (i == 0) {
+                            fec_pred_q13[0] = tmp_pred[0];
+                            fec_pred_q13[1] = tmp_pred[1];
+                        }
                         if (cs[1].LBRR_flags[i] == 0)
                             ec_dec_icdf(dec, TU8[TU8_STEREO_MID], 8);
                     }
@@ -1941,9 +2035,17 @@ static int64_t silk_decode_one(silk_state *s, ecdec *dec,
                     decode_pulses(dec, cs[n].ind.signalType,
                                   cs[n].ind.quantOffsetType,
                                   cs[n].frame_length, pulses_tmp);
+                    if (fec && i == 0 && !fec_have[n]) {
+                        decode_lbrr_frame(&cs[n], cond, pulses_tmp,
+                                          fec_xq[n]);
+                        fec_have[n] = 1;
+                    }
                 }
             }
         }
+        if (fec)
+            return fec_output(s, n_channels_internal, fec_have, fec_xq,
+                              fec_pred_q13, out);
     }
 
     if (n_channels_internal == 2) {
@@ -2065,7 +2167,7 @@ int64_t silk_decode(void *h, const uint8_t *buf, uint32_t storage,
         int chunk_ms = payload_ms >= 20 ? 20 : payload_ms;
         int64_t n = silk_decode_one(s, &dec, n_channels_internal,
                                     internal_rate, payload_ms, first,
-                                    out + total * s->nChannelsAPI, 0);
+                                    out + total * s->nChannelsAPI, 0, 0);
         if (n < 0) return -1;
         total += n;
         remaining_ms -= chunk_ms;
@@ -2090,11 +2192,29 @@ int64_t silk_decode_lost(void *h, int n_channels_internal,
         int chunk_ms = payload_ms >= 20 ? 20 : payload_ms;
         int64_t n = silk_decode_one(s, 0, n_channels_internal,
                                     internal_rate, payload_ms, first,
-                                    out + total * s->nChannelsAPI, 1);
+                                    out + total * s->nChannelsAPI, 1, 0);
         if (n < 0) return -1;
         total += n;
         remaining_ms -= chunk_ms;
         first = 0;
     }
     return total;
+}
+
+/* Recover the frame lost before this packet from the packet's first
+   LBRR frame (opus_decode(..., decode_fec=1); dec_API.c
+   FLAG_DECODE_LBRR): one 10 or 20 ms frame at 48 kHz, out interleaved
+   int16 [n * nChannelsAPI]. The range decoder starts at the frame's
+   first byte. Returns n, -2 when the packet carries no LBRR data, or
+   -1. */
+int64_t silk_decode_fec(void *h, const uint8_t *buf, uint32_t storage,
+                        int n_channels_internal, int internal_rate,
+                        int payload_ms, int16_t *out)
+{
+    silk_state *s = (silk_state *)h;
+    ecdec dec;
+    if (!tables_ready || !s) return -1;
+    ec_init(&dec, buf, storage);
+    return silk_decode_one(s, &dec, n_channels_internal, internal_rate,
+                           payload_ms, 1, out, 0, 1);
 }

@@ -209,6 +209,12 @@ def _bind(L: ctypes.CDLL) -> ctypes.CDLL:
         i64p, c_int, c_int, c_int,              # ec, channels, rate, ms
         i16p,                                   # out
     ]
+    L.silk_decode_fec.restype = c_i64
+    L.silk_decode_fec.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, u32,  # handle, buf, storage
+        c_int, c_int, c_int,                    # channels, rate, ms
+        i16p,                                   # out
+    ]
     L.silk_decode_lost.restype = c_i64
     L.silk_decode_lost.argtypes = [
         ctypes.c_void_p, c_int, c_int, c_int,   # handle, channels, rate, ms
@@ -257,6 +263,16 @@ def _bind_codec(L: ctypes.CDLL) -> ctypes.CDLL:
         vp, vp, vp, vp,                         # scf long, short, mixed, parts
         vp, vp, vp,                             # scfc_decode, mod, preamp
         vp, vp, vp,                             # expfrac, pan, aa
+    ]
+    # native/mp3_huff.c: one granule-channel's Huffman (the frame route)
+    L.mp3_l3_huffman.restype = None
+    L.mp3_l3_huffman.argtypes = [
+        vp, ctypes.c_char_p, c_i64, c_i64,      # dst, buf, buflen, pos bits
+        vp, vp, vp, vp, vp, vp,                 # tabs, tab32, tab33, index,
+                                                # linbits, pow43
+        vp, vp, c_int, vp, vp,                  # sfb, scf, big_values,
+                                                # table_select, region_count
+        c_int, c_i64, c_i32,                    # count1, limit, tabs_len
     ]
     L.mp3s_l3_stream.restype = c_i64
     L.mp3s_l3_stream.argtypes = [

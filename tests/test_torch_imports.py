@@ -35,7 +35,10 @@ def test_port_modules_import_without_jax():
                  "formats.opus.decoder", "formats.opus.silk",
                  "formats.opus.silk_tables", "formats.opus.range_coder",
                  "formats.opus.celt_frame", "formats.opus.celt_plc",
-                 "formats.opus.repacketizer"):
+                 "formats.opus.repacketizer", "encoders", "ops.src",
+                 "formats.opus.celt", "formats.opus.celt_encoder",
+                 "formats.opus.silk_encoder", "formats.opus.hybrid_encoder",
+                 "formats.opus.analysis"):
         assert f"libnyquist_torch.{name}" in mods
     # Only what the port's imports add counts: an interpreter start-up hook
     # may load jax before any of them runs.
@@ -113,9 +116,9 @@ def _ogg_pages(data):
 
 def _inputs(name):
     """Layer III the native decode hands back (free format, a Layer II
-    frame ahead of Layer III: a queue item still open, ROADMAP.md), and
-    two general-path Opus files: a chained one (a second link under
-    another serial number) and one with a lost page."""
+    frame ahead of Layer III), and two general-path Opus files: a
+    chained one (a second link under another serial number) and one
+    with a lost page."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
@@ -137,11 +140,20 @@ def _inputs(name):
 
 @pytest.mark.parametrize("name", ["free-format Layer III", "mixed layers"])
 def test_other_formats_name_their_roadmap_item(name):
+    """Layer III outside the native decode, once a queue item, now
+    decodes through the per-frame route: load() equals the JAX package
+    within 1e-5 of max(|ref|, 1) (the name is kept)."""
     import libnyquist_torch as nqt
+    import libnyquist_tpu as nq
 
     data, ext = _inputs(name)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        nqt.load(data, extension=ext, device="cpu")
+    got = nqt.load(data, extension=ext, device="cpu")
+    ref = nq.load(data, extension=ext)
+    assert (got.channel_count, got.sample_rate) == (ref.channel_count,
+                                                    ref.sample_rate)
+    assert got.samples.shape == ref.samples.shape and got.samples.size
+    err = np.abs(got.samples - ref.samples).max()
+    assert err <= 1e-5 * max(1.0, np.abs(ref.samples).max()), err
 
 
 @pytest.mark.parametrize("name", ["chained Opus", "lost Opus page"])

@@ -90,10 +90,10 @@ def test_nyquist_io_and_exports():
     assert np.array_equal(got.samples, nqt.load(str(KITTY),
                                                 device="cpu").samples)
     # every export of the JAX package is in the port but the modules not
-    # ported yet (streaming, URL loading, resampling: ROADMAP.md)
+    # ported yet (streaming, URL loading: ROADMAP.md)
     later = {"StreamReader", "OggSeekReader", "ChainedOggSeekReader",
              "Mp3SeekReader", "FlacSeekReader", "seek_reader", "open_url",
-             "load_url", "resample"}
+             "load_url"}
     assert set(nqt.__all__) == set(nq.__all__) - later
     for name in ("NyquistError", "DecodeError", "TruncatedDataError",
                  "UnsupportedExtensionError", "LoadPathNotImplementedError",

@@ -7,6 +7,7 @@ reference's own SILK concealment (tests/golden/opus_plc.bin), the
 repacketizer oracle, and Ogg files cut from the golden packets by
 tools/opus_stream.py."""
 
+import functools
 import importlib.util
 import pathlib
 import struct
@@ -169,10 +170,101 @@ def test_loss_free_hybrid_flushes_once():
     assert dec.stats["syncs"] == 0
 
 
-def test_fec_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="Opus in-band FEC"):
-        OpusDecoder(1, device="cpu").decode_packet(
-            CASES[8]["packets"][1], fec=True)
+FEC_LOST = 40
+
+
+def _snr(ref, got):
+    g = float((ref * got).sum() / max((got ** 2).sum(), 1e-12))
+    err = ref - g * got
+    return 10 * np.log10((ref ** 2).sum() / max((err ** 2).sum(), 1e-9))
+
+
+@functools.lru_cache(maxsize=2)
+def _fec_packets(ch):
+    """Packets of the JAX SILK encoder with in-band FEC (LBRR), 1 s of
+    the speech-like signal of tests/test_encoders.py."""
+    from libnyquist_tpu.audio_data import AudioData, PCMFormat
+    from libnyquist_tpu.encoders import EncoderParams, encode_opus_to_buffer
+    from libnyquist_tpu.formats.ogg import demux
+
+    from .test_encoders import _speechish
+
+    sig = _speechish(seconds=1.0)
+    if ch == 2:
+        sig = np.stack([sig, np.roll(sig, 240) * 0.9], 1).reshape(-1)
+    a = AudioData()
+    a.samples, a.channel_count, a.sample_rate = sig, ch, 48000
+    a.source_format = PCMFormat.PCM_FLT
+    buf = encode_opus_to_buffer(EncoderParams(ch, PCMFormat.PCM_FLT), a,
+                                mode="silk", fec=True)
+    return tuple(q.data for q in next(iter(demux(buf).values())).packets[2:])
+
+
+@pytest.mark.parametrize("ch", [1, 2])
+def test_fec_names_its_roadmap_item(ch, monkeypatch):
+    """In-band FEC, once a queue item: decode_packet(next, fec=True)
+    recovers the dropped packet from next's LBRR frame on the stream's
+    own SILK state. It equals the JAX package's Python-only SILK route
+    (its own test holds that route to libopus decode_fec=1) bit for bit,
+    recovers the lost frame above 12 dB, and the stream decodes on
+    equal to that route. (The name is kept from when the port raised.)"""
+    from libnyquist_tpu.formats.opus import silk as jsilk
+
+    pkts = _fec_packets(ch)
+    monkeypatch.setattr(jsilk, "_native_silk", lambda: None)
+    clean = JOpusDecoder(ch).decode_packet
+    clean = [clean(q) for q in pkts[: FEC_LOST + 1]][FEC_LOST]
+    jd = JOpusDecoder(ch)
+    pd = OpusDecoder(ch, device="cpu")
+    for q in pkts[:FEC_LOST]:
+        jd.decode_packet(q)
+        pd.push_packet(q)
+    pd.flush()
+    ref = jd.decode_packet(pkts[FEC_LOST + 1], fec=True)
+    got = pd.decode_packet(pkts[FEC_LOST + 1], fec=True).numpy()
+    assert got.dtype == np.float32 and got.shape == ref.shape == clean.shape
+    assert np.array_equal(got, ref.astype(np.float32))
+    assert _snr(clean, got) > 12.0
+    for q in pkts[FEC_LOST + 1: FEC_LOST + 4]:
+        assert np.array_equal(pd.decode_packet(q).numpy(),
+                              jd.decode_packet(q).astype(np.float32))
+
+
+@pytest.mark.parametrize("ch", [1, 2])
+def test_fec_jax_default_route_starts_fresh(ch):
+    """The JAX package's default route recovers on a fresh Python SILK
+    decoder (its native plane's state is opaque to it), dropping the
+    channel history; the port recovers on the stream's state, so it
+    differs from that route and recovers the lost frame better (on this
+    signal 18.7 / 16.7 dB against 11.1 / 12.7, mono / stereo)."""
+    pkts = _fec_packets(ch)
+    clean = JOpusDecoder(ch).decode_packet
+    clean = [clean(q) for q in pkts[: FEC_LOST + 1]][FEC_LOST]
+    jd = JOpusDecoder(ch)
+    pd = OpusDecoder(ch, device="cpu")
+    for q in pkts[:FEC_LOST]:
+        jd.decode_packet(q)
+        pd.push_packet(q)
+    pd.flush()
+    fresh = jd.decode_packet(pkts[FEC_LOST + 1], fec=True)
+    got = pd.decode_packet(pkts[FEC_LOST + 1], fec=True).numpy()
+    assert np.abs(got - fresh).max() > 0.01
+    assert _snr(clean, got) > _snr(clean, fresh) + 3.0
+
+
+def test_fec_typed_errors():
+    """No next packet, a non-SILK packet and a packet without LBRR data
+    raise DecodeError in both packages."""
+    from libnyquist_torch.errors import DecodeError
+    from libnyquist_tpu.errors import DecodeError as JDecodeError
+
+    no_lbrr = CASES[8]["packets"][1]        # a libopus SILK packet
+    for data in (None, CASES[0]["packets"][1], no_lbrr):
+        with pytest.raises(DecodeError):
+            OpusDecoder(1, device="cpu").decode_packet(data, fec=True)
+    for data in (None, CASES[0]["packets"][1]):
+        with pytest.raises(JDecodeError):
+            JOpusDecoder(1).decode_packet(data, fec=True)
 
 
 def test_decoder_defaults_to_cuda(monkeypatch):
