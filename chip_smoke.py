@@ -131,6 +131,23 @@ failure exits non-zero before the result line:
    in 4 worker processes; K1's launches counted over the round trips.
    Host seconds and audio-seconds per second of each encoder, device ms
    of the resampler and of float32_to_pcm beside their byte bounds.
+11. seek phase: one stream per lazy reader type at the sizes above (Opus
+   streams 0 and 3 of phase 9, Vorbis, FLAC, MP3 and WAV s16 of 3.7 min,
+   the Ogg FLAC fixture and two re-serialled copies chained, the SV7
+   fixture, SV8 of 8,496 frames with an SO/ST seek table built by
+   tests/test_torch_streaming.py); per stream 32 seeded seeks of 4,800
+   samples and 10 s of 20 ms reads through seek_reader on the card, held
+   against the card's load() (Opus 2e-4, Vorbis 1e-6 of max(|ref|, 1),
+   FLAC, Ogg FLAC and WAV exactly; MP3 and Musepack: the gap printed) and
+   against the port's reader on the CPU (7 worker processes; 1e-5 of
+   max(|ref|, 1), exactly for FLAC and WAV); open ms, seek + read ms
+   (median, p90), reads and bytes a seek, the device span of the window
+   decodes by CUDA events and K1's launches a seek, counted from 0 over
+   the seeks; open_url over a localhost HTTP server with Range support
+   (Opus and FLAC; equal to the local reader, under 60 requests and twice
+   the file's bytes); 12 seeded mutations a stream, each raising a
+   NyquistError or reading what the CPU reads, then a valid read; the
+   CLI on the card against the CPU.
 Phases 4 to 6 print host seconds and host audio-seconds per second,
 device seconds and the device realtime factor, and the bounds reckoned
 from the shapes (float ops at the card's float32 peak outside the tensor
@@ -2537,6 +2554,539 @@ def phase10_encode(nqt, comb, card, dev):
             "mp3_err_vs_cpu": mp3_err, "phase_s": phase_s, "card": card}
 
 
+# --------------------------------------------------------------------------
+# phase 11: positioned reads and seeks, ranged reads over HTTP, the CLI
+# --------------------------------------------------------------------------
+SEEK_STREAMS = ("opus", "opus chained", "vorbis", "flac", "ogg flac",
+                "ogg flac chained", "mp3", "mpc sv7", "mpc sv8", "wav s16")
+SEEK_READS = 32                   # seeded seek positions a stream
+SEEK_N = 4800                     # samples a seek reads
+SEEK_SEQ_S = 10.0                 # sequential 20 ms reads after one seek
+SEEK_MUTATIONS = 12               # malformed inputs a stream
+# each reader's reads against the card's full load(), at the JAX
+# package's seek tolerances (tests/test_seek.py) of max(|ref|, 1) as the
+# script's other gates (the writers' noise peaks above 1; 0: equal bits);
+# None: held against the port's CPU reader only, the gap to load() printed
+SEEK_FULL_TOL = {"opus": 2e-4, "opus chained": 2e-4, "vorbis": 1e-6,
+                 "flac": 0.0, "ogg flac": 0.0, "ogg flac chained": 0.0,
+                 "wav s16": 0.0, "mp3": None, "mpc sv7": None,
+                 "mpc sv8": None}
+SEEK_EXACT = ("flac", "ogg flac", "ogg flac chained", "wav s16")
+
+
+def load_seek_builders():
+    """The content builders of tests/test_torch_streaming.py (NumPy and
+    the writers only): the SV8 stream with a seek table, the Ogg
+    re-serial."""
+    spec = importlib.util.spec_from_file_location(
+        "_seek_builders", ROOT / "tests" / "test_torch_streaming.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def seek_stream(name: str) -> bytes:
+    """Phase 11's input ``name`` at the earlier phases' sizes."""
+    b = load_seek_builders()
+    if name in ("opus", "opus chained"):
+        k = 0 if name == "opus" else 3          # stream 3: two links
+        return load_tool("opus_stream").make_opus_stream(
+            k, OPUS_GENERAL_PACKETS)[0]
+    if name == "vorbis":
+        return load_tool("vorbis_stream").make_vorbis_stream(
+            310, VORBIS_SECONDS)
+    if name == "flac":
+        return load_tool("flac_stream").make_flac_stream(
+            311, LOSSLESS_SECONDS)[0]
+    if name in ("ogg flac", "ogg flac chained"):
+        fl = (FIXTURES / "kitty8_dithered.oga").read_bytes()
+        return fl if name == "ogg flac" else (b.reserial(fl, 0x7001)
+                                              + b.reserial(fl, 0x7002))
+    if name == "mp3":
+        return load_tool("l3_stream").make_l3_stream(312, L3_SECONDS)
+    if name == "mpc sv7":
+        return (FIXTURES / "sv7_stereo.mpc").read_bytes()
+    if name == "mpc sv8":
+        return b.sv8_with_seek_table(313, block_pwr=2, n_ap=MPC_FRAMES // 4)
+    payload = np.random.default_rng(314).integers(
+        0, 256, int(PCM_SECONDS * 44100) * 4, np.uint8).tobytes()
+    return wav_file(1, 2, 44100, 16, payload)
+
+
+def _seek_stream_job(name):
+    sys.path.insert(0, str(ROOT))
+    return seek_stream(name)
+
+
+def seek_plan(total: int, rate: int, seed: int) -> dict:
+    """SEEK_READS seeded positions of SEEK_N-sample reads, then one seek
+    and SEEK_SEQ_S of 20 ms reads."""
+    rng = np.random.default_rng(seed)
+    top = max(total - SEEK_N, 1)
+    return {"positions": [int(p) for p in rng.integers(0, top, SEEK_READS)],
+            "seq_pos": int(rng.integers(0, top)), "step": rate // 50,
+            "seq_reads": int(SEEK_SEQ_S * 50)}
+
+
+def seek_mutations(data: bytes, seed: int):
+    """SEEK_MUTATIONS byte mutations as tests/test_seek.py:319-357 makes
+    them (1 to 10 bytes anywhere, or in the first 2 KiB), each with four
+    (fraction of the total, read size) steps."""
+    import random
+
+    rng = random.Random(seed)
+    out = []
+    for _ in range(SEEK_MUTATIONS):
+        region = rng.choice([len(data), min(2048, len(data))])
+        edits = [(rng.randrange(region), rng.randrange(256))
+                 for _ in range(rng.randint(1, 10))]
+        steps = [(rng.random(), rng.randrange(1, 4000)) for _ in range(4)]
+        out.append((edits, steps))
+    return out
+
+
+def seek_reads(reader, src, plan, comb=None):
+    """The plan's reads through ``reader`` -> (outputs, per-seek rows of
+    (host ms, reads, bytes, K1 launches)). A read returns host samples,
+    so the host clock stops after the device finished."""
+    outs, rows = [], []
+    for pos in plan["positions"]:
+        r0, b0 = src.reads, src.bytes_read
+        k0 = comb.comb_filter_cuda.launches if comb else 0
+        t0 = time.perf_counter()
+        reader.pcm_seek(pos)
+        outs.append(reader.read(SEEK_N))
+        rows.append(((time.perf_counter() - t0) * 1e3, src.reads - r0,
+                     src.bytes_read - b0,
+                     (comb.comb_filter_cuda.launches - k0) if comb else 0))
+    reader.pcm_seek(plan["seq_pos"])
+    for _ in range(plan["seq_reads"]):
+        outs.append(reader.read(plan["step"]))
+    return outs, rows
+
+
+def drive_mutation(seek_reader, data, edits, steps, device):
+    """Open the mutated input and take its steps -> (outputs, the error's
+    class name or None); an error outside the NyquistError hierarchy
+    propagates."""
+    from libnyquist_torch.errors import NyquistError
+
+    mut = bytearray(data)
+    for pos, val in edits:
+        mut[pos] = val
+    outs = []
+    try:
+        r = seek_reader(bytes(mut), device=device)
+        total = r.pcm_total()
+        for frac, n in steps:
+            if total > 1:
+                r.pcm_seek(int(frac * total))
+            outs.append(r.read(n))
+    except NyquistError as e:
+        return outs, type(e).__name__
+    return outs, None
+
+
+def seek_cpu_jobs(name, data, plan, muts):
+    """The CPU reference work of one stream as worker jobs (name, part,
+    data, plan, mutations): an Opus stream's seeks in chunks of 4, its
+    sequential reads and its mutations one by one (its windows are the
+    slow ones on the CPU), any other stream whole."""
+    if not name.startswith("opus"):
+        return [(name, 0, data, plan, muts)]
+    quiet = dict(plan, seq_reads=0)
+    jobs = [(name, i, data, dict(quiet, positions=plan["positions"][i:i + 4]),
+             []) for i in range(0, len(plan["positions"]), 4)]
+    jobs.append((name, len(jobs), data, dict(plan, positions=[]), []))
+    jobs += [(name, len(jobs) + j, data, dict(quiet, positions=[]), [m])
+             for j, m in enumerate(muts)]
+    return jobs
+
+
+def _seek_cpu(job):
+    """The port's lazy reader on the CPU over one stream (or one part of
+    its work), one thread: the plan's reads and the malformed inputs'
+    steps; run in a worker."""
+    name, part, data, plan, muts = job
+    sys.path.insert(0, str(ROOT))
+    torch.set_num_threads(1)
+    from libnyquist_torch import streaming
+
+    t0 = time.perf_counter()
+    src = streaming.CountingSource(data)
+    outs, _ = seek_reads(streaming.seek_reader(src, device="cpu"), src, plan)
+    mres = [drive_mutation(streaming.seek_reader, data, e, s, "cpu")
+            for e, s in muts]
+    return name, part, outs, mres, time.perf_counter() - t0
+
+
+class WindowMeter:
+    """CUDA events around every window decode (and every WAV read, which
+    converts on the card) while on: the device span of the windows."""
+
+    def __init__(self):
+        from libnyquist_torch import streaming
+
+        self.targets = [(streaming.OggSeekReader, "_decode_window"),
+                        (streaming.Mp3SeekReader, "_decode_window"),
+                        (streaming.FlacSeekReader, "_decode_window"),
+                        (streaming.MpcSeekReader, "_decode_window"),
+                        (streaming.WavSeekReader, "read")]
+        self.orig = [getattr(c, m) for c, m in self.targets]
+        self.events = []
+        meter = self
+
+        def timed(fn):
+            def run(*a, **k):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = fn(*a, **k)
+                e1.record()
+                meter.events.append((e0, e1))
+                return out
+            return run
+
+        for (cls, m), fn in zip(self.targets, self.orig):
+            setattr(cls, m, timed(fn))
+
+    def take(self):
+        """(windows, device ms) since the last take."""
+        torch.cuda.synchronize()
+        ev, self.events = self.events, []
+        return len(ev), sum(a.elapsed_time(b) for a, b in ev)
+
+    def close(self):
+        for (cls, m), fn in zip(self.targets, self.orig):
+            setattr(cls, m, fn)
+
+
+def worst(outs, refs, scaled=True):
+    """Largest |a - b| over paired reads (scaled by max(|ref|, 1)), or
+    None when a pair differs in shape."""
+    err, peak = 0.0, 1.0
+    for a, b in zip(outs, refs):
+        if a.shape != b.shape:
+            return None
+        if a.size:
+            err = max(err, float(np.abs(a - b).max()))
+            peak = max(peak, float(np.abs(b).max()))
+    return err / peak if scaled else err
+
+
+def full_reads(full, plan):
+    """The plan's reads from the decode-backed reader over load()."""
+    outs = []
+    for pos in plan["positions"]:
+        full.pcm_seek(pos)
+        outs.append(full.read(SEEK_N))
+    full.pcm_seek(plan["seq_pos"])
+    for _ in range(plan["seq_reads"]):
+        outs.append(full.read(plan["step"]))
+    return outs
+
+
+def range_server(files: dict):
+    """A threaded HTTP/1.1 server on 127.0.0.1 serving ``files`` (path
+    -> bytes) with Range support; returns (server, base URL)."""
+    import http.server
+    import threading
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def log_message(self, *a):
+            pass
+
+        def do_GET(self):
+            body = files.get(self.path)
+            if body is None:
+                self.send_response(404)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+                return
+            rng = self.headers.get("Range")
+            if rng:
+                lo_s, hi_s = rng.split("=", 1)[1].split(",")[0].split("-", 1)
+                lo = int(lo_s)
+                hi = min(int(hi_s) if hi_s else len(body) - 1, len(body) - 1)
+                if lo >= len(body):
+                    self.send_response(416)
+                    self.send_header("Content-Range", f"bytes */{len(body)}")
+                    self.send_header("Content-Length", "0")
+                    self.end_headers()
+                    return
+                part = body[lo : hi + 1]
+                self.send_response(206)
+                self.send_header("Content-Range",
+                                 f"bytes {lo}-{hi}/{len(body)}")
+            else:
+                part = body
+                self.send_response(200)
+            self.send_header("Content-Length", str(len(part)))
+            self.end_headers()
+            self.wfile.write(part)
+
+    class Server(http.server.ThreadingHTTPServer):
+        daemon_threads = True
+
+        def handle_error(self, request, client_address):
+            pass    # a reader closing a connection with a body in flight
+
+    srv = Server(("127.0.0.1", 0), Handler)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv, f"http://127.0.0.1:{srv.server_address[1]}"
+
+
+def phase11_seek(nqt, comb, card, dev):
+    """Positioned reads and seeks on the card: one stream per lazy reader
+    type at the earlier phases' sizes, 32 seeded seeks of 4,800 samples
+    and 10 s of 20 ms reads after one seek each, held against the card's
+    full load() and against the port's lazy reader on the CPU (worker
+    processes); open and seek times, reads and bytes per seek, the device
+    span of the window decodes, K1 launches per Opus seek; ranged reads
+    over HTTP; a malformed-input pass; the console entry point."""
+    import contextlib
+    import io
+    import multiprocessing
+    import shutil
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    from libnyquist_torch import cli, streaming
+    from libnyquist_torch.errors import NyquistError
+
+    t_phase = time.perf_counter()
+    log(f"phase 11: seeks on the card, {len(SEEK_STREAMS)} streams x "
+        f"{SEEK_READS} seeks of {SEEK_N} samples and {SEEK_SEQ_S:.0f} s of "
+        f"20 ms reads, HTTP, {SEEK_MUTATIONS} malformed inputs a stream, "
+        f"the CLI")
+    pool = ProcessPoolExecutor(
+        8, mp_context=multiprocessing.get_context("spawn"))
+    flac_job = pool.submit(_seek_stream_job, "flac")
+    t0 = time.perf_counter()
+    datas = {n: seek_stream(n) for n in SEEK_STREAMS if n != "flac"}
+    log(f"  {len(datas)} streams ({sum(map(len, datas.values())) / 1e6:.1f} "
+        f"MB) written in {time.perf_counter() - t0:.1f} s; FLAC in a worker")
+    plans, muts = {}, {}
+
+    def plan_for(name):
+        """Totals from a reader on the card (opening reads headers and
+        the tail only), then the stream's reads and mutations."""
+        if name == "flac":
+            datas[name] = flac_job.result()
+        i = SEEK_STREAMS.index(name)
+        r = streaming.seek_reader(datas[name], device=dev)
+        plans[name] = seek_plan(r.pcm_total(), r.sample_rate, 400 + i)
+        muts[name] = seek_mutations(datas[name], 500 + i)
+
+    # the timed reads run with the CPU workers idle (FLAC, written in a
+    # worker meanwhile, comes last)
+    meter = WindowMeter()
+    rows, card_outs = {}, {}
+    # the seek path: K1's count to 0 just before, read just after
+    comb.comb_filter_cuda.launches = 0
+    for name in sorted(SEEK_STREAMS, key=lambda n: n == "flac"):
+        plan_for(name)
+        data = datas[name]
+        src = streaming.CountingSource(data)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = streaming.seek_reader(src, device=dev)
+        open_ms = (time.perf_counter() - t0) * 1e3
+        open_io = (src.reads, src.bytes_read)
+        meter.take()
+        outs, per = seek_reads(r, src, plans[name], comb)
+        n_win, dev_ms = meter.take()
+        card_outs[name] = outs
+        ms = sorted(p[0] for p in per)
+        rows[name] = {
+            "reader": type(r).__name__, "total": r.pcm_total(),
+            "channels": r.channel_count, "rate": r.sample_rate,
+            "bytes": len(data), "open_ms": open_ms, "open_reads": open_io[0],
+            "open_bytes": open_io[1],
+            "seek_read_ms_median": statistics.median(ms),
+            "seek_read_ms_p90": ms[int(0.9 * (len(ms) - 1))],
+            "reads_per_seek": sum(p[1] for p in per) / len(per),
+            "bytes_per_seek": sum(p[2] for p in per) / len(per),
+            "k1_per_seek": sum(p[3] for p in per) / len(per),
+            "windows": n_win, "window_device_ms": dev_ms}
+        log(f"  {name}: {SEEK_READS} seeks and {SEEK_SEQ_S:.0f} s of reads "
+            f"on the card in {time.perf_counter() - t0:.1f} s")
+    launches = comb.comb_filter_cuda.launches
+    check(launches > 0, "the Opus seeks launched no comb kernel")
+    meter.close()
+    cpu_jobs = [pool.submit(_seek_cpu, job) for n in SEEK_STREAMS
+                for job in seek_cpu_jobs(n, datas[n], plans[n], muts[n])]
+    t_cpu = time.perf_counter()
+
+    # the card's full load() of each stream
+    t_rest = time.perf_counter()
+    for name in SEEK_STREAMS:
+        row = rows[name]
+        data = datas[name]
+        if name == "ogg flac chained":      # load() decodes the first link
+            full = streaming.StreamReader(datas["ogg flac"], device=dev)
+            full._buf = np.concatenate([full._buf, full._buf])
+        else:
+            full = streaming.StreamReader(data, device=dev)
+        check(full.pcm_total() == row["total"],
+              f"seek {name}: lazy total {row['total']} vs load() "
+              f"{full.pcm_total()}")
+        tol = SEEK_FULL_TOL[name]
+        err = worst(card_outs[name], full_reads(full, plans[name]))
+        check(err is not None, f"seek {name}: read shapes differ from load()")
+        if tol is not None:
+            check(err <= tol, f"seek {name}: card reads vs card load() {err}")
+        row["err_vs_load"] = err
+        check(all(bool(np.isfinite(o).all()) for o in card_outs[name]),
+              f"seek {name}: non-finite samples")
+
+    log(f"  load() of the {len(SEEK_STREAMS)} streams on the card in "
+        f"{time.perf_counter() - t_rest:.1f} s")
+    # ranged reads over HTTP against the local reader on the card
+    srv, base = range_server({"/s.opus": datas["opus"],
+                              "/s.flac": datas["flac"]})
+    http_rows = {}
+    for name, path in (("opus", "/s.opus"), ("flac", "/s.flac")):
+        r = nqt.open_url(base + path, device=dev)
+        hsrc = getattr(r.src, "parent", r.src)   # a one-link Ogg's view
+        local = streaming.seek_reader(datas[name], device=dev)
+        plan = dict(plans[name], positions=plans[name]["positions"][:4],
+                    seq_reads=50)
+        t0 = time.perf_counter()
+        got, _ = seek_reads(r, hsrc, plan)
+        wall = time.perf_counter() - t0
+        want, _ = seek_reads(local, local.src, plan)
+        # two decodes on the card: equal for FLAC; the Opus mix adds with
+        # atomics (index_add_), so its order, and float rounding, may vary
+        e = worst(got, want)
+        check(e is not None and (e == 0.0 if name in SEEK_EXACT
+                                 else e <= 1e-5),
+              f"HTTP {name}: reads differ from the local reader's: {e}")
+        size = len(datas[name])
+        check(hsrc.requests < 60 and hsrc.bytes_fetched < 2 * size,
+              f"HTTP {name}: {hsrc.requests} requests, "
+              f"{hsrc.bytes_fetched} bytes of {size}")
+        http_rows[name] = {"requests": hsrc.requests,
+                           "bytes_fetched": hsrc.bytes_fetched,
+                           "file_bytes": size, "wall_s": wall}
+        hsrc.close()
+        log(f"  HTTP {name}: 4 seeks and 1 s of reads equal the local "
+            f"reader's ({e:.1e}); {hsrc.requests} requests, "
+            f"{hsrc.bytes_fetched} "
+            f"bytes fetched of a {size}-byte file, {wall:.2f} s")
+    srv.shutdown()
+    srv.server_close()
+
+    # malformed input on the card: a NyquistError or the CPU's samples
+    n_raised = n_equal = 0
+    card_muts = {}
+    t_rest = time.perf_counter()
+    for name in SEEK_STREAMS:
+        res = []
+        for edits, steps in muts[name]:
+            t0 = time.perf_counter()
+            try:
+                res.append(drive_mutation(streaming.seek_reader, datas[name],
+                                          edits, steps, dev))
+            except Exception as e:          # outside the hierarchy
+                fail(f"malformed {name}: {type(e).__name__}: {e}")
+            check(time.perf_counter() - t0 < 30.0,
+                  f"malformed {name}: more than 30 s")
+        card_muts[name] = res
+    log(f"  {SEEK_MUTATIONS * len(SEEK_STREAMS)} mutated inputs on the card "
+        f"in {time.perf_counter() - t_rest:.1f} s")
+
+    # the CPU references, their parts in order
+    cpu = {n: ([], [], 0.0) for n in SEEK_STREAMS}
+    for job in cpu_jobs:
+        name, _part, outs, mres, cpu_s = job.result()
+        o, m, c = cpu[name]
+        cpu[name] = (o + outs, m + mres, c + cpu_s)
+    pool.shutdown()
+    log(f"  the port on the CPU (references): {len(cpu_jobs)} jobs by 8 "
+        f"processes, {sum(c[2] for c in cpu.values()):.1f} s of CPU time, "
+        f"done {time.perf_counter() - t_cpu:.1f} s after they started")
+    for name in SEEK_STREAMS:
+        row = rows[name]
+        outs, mres, cpu_s = cpu[name]
+        exact = name in SEEK_EXACT
+        err = worst(card_outs[name], outs)
+        check(err is not None and len(outs) == len(card_outs[name]),
+              f"seek {name}: card and CPU read shapes differ")
+        check(err == 0.0 if exact else err <= 1e-5,
+              f"seek {name}: card vs CPU reader {err}")
+        row["err_vs_cpu"] = err
+        row["cpu_s"] = cpu_s
+        for (c_outs, c_err), (r_outs, r_err) in zip(card_muts[name], mres):
+            if c_err is not None:
+                n_raised += 1
+            else:
+                n_equal += 1
+                check(r_err is None and len(r_outs) == len(c_outs),
+                      f"malformed {name}: the card read what the CPU did not")
+            k = min(len(c_outs), len(r_outs))
+            e = worst(c_outs[:k], r_outs[:k])
+            check(e is not None and (e == 0.0 if exact else e <= 1e-5),
+                  f"malformed {name}: card vs CPU {e}")
+        log(f"  {name} ({row['reader']}, {row['channels']} ch, "
+            f"{row['total'] / row['rate']:.1f} s, {row['bytes']} bytes): "
+            f"open {row['open_ms']:.1f} ms ({row['open_reads']} reads, "
+            f"{row['open_bytes']} bytes); seek + {SEEK_N}-sample read "
+            f"median {row['seek_read_ms_median']:.1f} ms, p90 "
+            f"{row['seek_read_ms_p90']:.1f} ms (host wall); "
+            f"{row['reads_per_seek']:.1f} reads and "
+            f"{row['bytes_per_seek']:.0f} bytes a seek; {row['windows']} "
+            f"windows, device span {row['window_device_ms']:.1f} ms by CUDA "
+            f"events; K1 {row['k1_per_seek']:.2f} launches a seek; vs "
+            f"load() {row['err_vs_load']:.2e}, vs the CPU reader "
+            f"{err:.2e} on {card}")
+    # the card after the malformed pass: a valid read equals the CPU's
+    r = streaming.seek_reader(datas["opus"], device=dev)
+    r.pcm_seek(plans["opus"]["positions"][0])
+    e = worst([r.read(SEEK_N)], cpu["opus"][0][:1])
+    check(e is not None and e <= 1e-5,
+          "the card reads differently after the malformed pass")
+    log(f"  malformed input: {n_raised + n_equal} mutated inputs, "
+        f"{n_raised} raised a NyquistError, {n_equal} read what the CPU "
+        f"read; a valid read after them equals the CPU")
+
+    # the console entry point on the card against the CPU
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="seek_cli_", dir=ROOT))
+    try:
+        paths = {n: tmp / f"s.{ext}" for n, ext in (("flac", "flac"),
+                                                      ("opus", "opus"))}
+        for n, path in paths.items():
+            path.write_bytes(datas[n])
+        lines = {}
+        for d in (dev, "cpu"):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                check(cli.main([str(paths["flac"])], device=d) == 0,
+                      f"cli on {d} failed")
+                check(cli.main([str(paths["opus"]), "--info"],
+                               device=d) == 0, f"cli --info on {d} failed")
+            lines[str(d)] = buf.getvalue().splitlines()
+        card_lines, cpu_lines = lines[str(dev)], lines["cpu"]
+        check(card_lines[0] == cpu_lines[0] and card_lines[0].startswith(
+            "len: "), f"cli: {card_lines[0]!r} vs {cpu_lines[0]!r}")
+        info = (f"{rows['opus']['reader']}: {rows['opus']['total']} "
+                f"samples/ch")
+        check(card_lines[2] == cpu_lines[2] == info,
+              f"cli --info: {card_lines[2]!r}")
+        log(f"  cli on the card: {card_lines[0]!r} as on the CPU; --info "
+            f"{card_lines[2]!r}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    log(f"  phase 11 took {phase_s:.1f} s; K1 launches in the Opus seeks "
+        f"{launches}")
+    return {"readers": rows, "http": http_rows, "k1_launches": launches,
+            "malformed": {"raised": n_raised, "equal_cpu": n_equal},
+            "phase_s": phase_s, "card": card}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -2578,14 +3128,17 @@ def main() -> int:
     general = phase9_opus_general(nqt, comb, card, dev)
     torch.cuda.empty_cache()
     encode = phase10_encode(nqt, comb, card, dev)
+    torch.cuda.empty_cache()
+    seek = phase11_seek(nqt, comb, card, dev)
     for row in rows:
         if row["name"] == "comb_filter":
             row["launches_opus_general"] = general["k1_launches"]
             row["launches_encode_round_trips"] = encode["k1_launches"]
+            row["launches_seek"] = seek["k1_launches"]
     log(json.dumps({"serving": serve, "mp3": mp3, "mpc": mpc,
                     "vorbis": vorbis, "pcm": pcm_rows, "lossless": lossless,
                     "opus_general": general, "encode": encode,
-                    "card": card}))
+                    "seek": seek, "card": card}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": list(rows)}), flush=True)

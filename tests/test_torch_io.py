@@ -89,12 +89,11 @@ def test_nyquist_io_and_exports():
     got = nqt.NyquistIO().load(str(KITTY), device="cpu")
     assert np.array_equal(got.samples, nqt.load(str(KITTY),
                                                 device="cpu").samples)
-    # every export of the JAX package is in the port but the modules not
-    # ported yet (streaming, URL loading: ROADMAP.md)
-    later = {"StreamReader", "OggSeekReader", "ChainedOggSeekReader",
-             "Mp3SeekReader", "FlacSeekReader", "seek_reader", "open_url",
-             "load_url"}
-    assert set(nqt.__all__) == set(nq.__all__) - later
+    # every export of the JAX package is in the port, the positioned
+    # readers and URL loading included
+    assert set(nqt.__all__) == set(nq.__all__)
+    for name in nq.__all__:
+        assert callable(getattr(nqt, name)), name
     for name in ("NyquistError", "DecodeError", "TruncatedDataError",
                  "UnsupportedExtensionError", "LoadPathNotImplementedError",
                  "LoadBufferNotImplementedError"):
