@@ -148,6 +148,19 @@ failure exits non-zero before the result line:
    the file's bytes); 12 seeded mutations a stream, each raising a
    NyquistError or reading what the CPU reads, then a valid read; the
    CLI on the card against the CPU.
+12. mesh and profiling phase: entry()'s single-card step on the card
+   against the CPU (1e-5 of max(|ref|, 1)); sharded_decode_step(1,
+   rows=16, F=512) (the serving batch's 8 stereo streams, phase 3's
+   512-frame chunk) on the card, K1's launches counted from 0 over it
+   and K1 held against its plain version on the step's own inputs
+   (1e-5), its kernel ms by CUDA events; the card's world 1 at (16, 16)
+   against 8 gloo ranks on the CPU (1e-5); NCCL ranks across the cards
+   where there are two or more (tools/mesh_nccl_check.py's run_case),
+   else a line saying so; a CUDA request for more ranks than cards
+   raises; profile_opus_load on the card (a CELT stream of 3,000 packets
+   cycling the serving cases) with its report; the card's peaks by name;
+   a device_trace of the single-card step that must hold its kernels, K1
+   among them; op_cost of the step and of K1 (at least K1's bytes).
 Phases 4 to 6 print host seconds and host audio-seconds per second,
 device seconds and the device realtime factor, and the bounds reckoned
 from the shapes (float ops at the card's float32 peak outside the tensor
@@ -206,6 +219,9 @@ WV_FIXTURES = ("hybrid_mono", "hybrid_shape", "hybrid_stereo", "dsd_fast",
                "dsd_high", "dsd_raw")
 ADPCM_BLOCK = 2048                # WAV IMA-ADPCM block align, stereo
 OPUS_GENERAL_PACKETS = 3000       # phase 9: 60 s of 20 ms packets a stream
+MESH_SERVE = (16, 512)            # phase 12: rows of 8 stereo streams, frames
+MESH_SMALL = (16, 16)             # phase 12: the card against 8 gloo ranks
+PROFILE_PACKETS = 3000            # phase 12: profile_opus_load's stream
 PROBE_SRC = ROOT / "tools" / "smem_round_trip.cu"
 COMB_THREADS = 128                # threads of one row's block in csrc/comb.cu
 
@@ -3087,6 +3103,170 @@ def phase11_seek(nqt, comb, card, dev):
             "phase_s": phase_s, "card": card}
 
 
+# ----------------------------------------------------------------------
+# phase 12: the sharded decode step, the profiler and the flag surface
+# ----------------------------------------------------------------------
+
+def phase12_mesh(comb, card, dev):
+    """The entry module's steps on the card (K1 in the shard), the card
+    against gloo ranks on the CPU, NCCL across cards where there are
+    several, the stage profiler, the peaks, a trace and the counters."""
+    import shutil
+    import tempfile
+
+    from libnyquist_torch import config, entry
+    from libnyquist_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    log("phase 12: the sharded decode step, the profiler and the flag "
+        "surface")
+    step, args = entry.entry(device=dev)
+    got = step(*args)
+    cstep, cargs = entry.entry(device="cpu")
+    ref = cstep(*cargs)
+    err = max(float((g.cpu() - r).abs().max()) / max(float(r.abs().max()),
+                                                    1.0)
+              for g, r in zip(got, ref))
+    check(err <= 1e-5, f"entry() on the card vs the CPU: {err:.3e}")
+    entry_ms = cuda_ms(lambda: step(*args), reps=7)
+    log(f"  entry() step (4 rows x 8 frames): card vs CPU {err:.2e} of "
+        f"max(|ref|, 1); {entry_ms:.3f} ms by CUDA events")
+
+    # the sharded step at the serving shape, K1 in its shard
+    rows, F = MESH_SERVE
+    captured = []
+    plain = entry.comb_ops.comb_filter
+
+    def capture(*a):
+        captured.append(tuple(t.clone() for t in a))
+        return plain(*a)
+
+    entry.comb_ops.comb_filter = capture
+    comb.comb_filter_cuda.launches = 0
+    try:
+        t0 = time.perf_counter()
+        out, mesh = entry.sharded_decode_step(1, rows=rows, F=F, device=dev)
+        step_s = time.perf_counter() - t0
+    finally:
+        entry.comb_ops.comb_filter = plain
+    launches = comb.comb_filter_cuda.launches
+    check(launches > 0, "the sharded step launched no comb kernel")
+    check(launches == len(captured) == mesh[1],
+          f"the sharded step launched K1 {launches} times for sp = "
+          f"{mesh[1]}")
+    check(out.shape == (rows, F * 960) and bool(np.isfinite(out).all()),
+          f"sharded step output {out.shape}")
+    k_args = captured[0]
+    B, n = k_args[2].shape
+    ae, re, taken = compare_comb(
+        comb, k_args, f"in the sharded step ({B} rows x {n} chunks)")
+    k_ms = cuda_ms(lambda: comb.comb_filter_cuda(*k_args), reps=7)
+    nbytes, flops = comb_work(B, n)
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+    k_cost = profiling.op_cost(comb.comb_filter_cuda, *k_args)
+    check(k_cost.get("bytes", 0) >= nbytes,
+          f"op_cost of K1 {k_cost} holds less than its {nbytes} bytes")
+    log(f"  op_cost of K1 in the shard: {k_cost['bytes'] / 1e6:.2f} MB "
+        f"(the kernel's {nbytes / 1e6:.2f} MB, the output's allocation "
+        f"and the history copy)")
+    log(f"  sharded_decode_step(1, rows={rows}, F={F}) on the card: "
+        f"{step_s:.2f} s host wall (inputs made and uploaded, one step); "
+        f"K1 {launches} launch(es), kernel {k_ms:.3f} ms by CUDA events "
+        f"(bound {bound:.4f} ms), {int(taken.max())} steps in the slowest "
+        f"row; {card}")
+    del captured, k_args
+
+    # the card's world 1 against 8 gloo ranks on the CPU
+    rows, F = MESH_SMALL
+    one, _ = entry.sharded_decode_step(1, rows=rows, F=F, device=dev)
+    t0 = time.perf_counter()
+    cpu8, mesh8 = entry.sharded_decode_step(8, rows=rows, F=F, device="cpu")
+    gloo_s = time.perf_counter() - t0
+    scale = max(float(np.abs(cpu8).max()), 1.0)
+    e8 = float(np.abs(one - cpu8).max()) / scale
+    check(mesh8 == (2, 2, 2) and e8 <= 1e-5,
+          f"card world 1 vs 8 gloo ranks {mesh8}: {e8:.3e}")
+    log(f"  world 1 on the card vs 8 gloo ranks {mesh8} on the CPU at "
+        f"({rows}, {F}): {e8:.2e} of max(|ref|, 1); the spawn and step "
+        f"{gloo_s:.1f} s")
+    n_cards = torch.cuda.device_count()
+    nccl_tool = load_tool("mesh_nccl_check")
+    nccl = None
+    if n_cards >= 2:
+        nccl = nccl_tool.run_case(nccl_tool.ranks_for(n_cards), rows, F,
+                                  serving=False)
+        log(f"  {nccl['ranks']} NCCL ranks {nccl['mesh']} on "
+            f"{nccl['ranks']} cards vs world 1 at ({rows}, {F}): "
+            f"{nccl['err']:.2e}; K1 launches a rank {nccl['k1_launches']}; "
+            f"{nccl['wall_s']:.1f} s with the spawn")
+    else:
+        log("  collectives on the card were not run (1 card): NCCL takes "
+            "one card a rank; tools/mesh_nccl_check.py runs them on a "
+            "machine with several")
+    log(f"  {nccl_tool.check_too_many_ranks(n_cards)}")
+
+    # the stage profiler on the card
+    tool = load_tool("opus_stream")
+    pkts, _ = tool.cycle_packets(tool.read_cases(), SERVE_CASES,
+                                 PROFILE_PACKETS)
+    data = tool.ogg_opus(pkts, tool.opus_head(2), 0x4E5D0000)
+    prof = profiling.profile_opus_load(data, device=dev)
+    names = [nm for nm, _ in prof.stages]
+    check(names == ["ogg scan + TOC split", "entropy decode (C)",
+                    "frame marshalling", "synthesis (GEMM+comb)",
+                    "gain + trim"], f"profile stages {names}")
+    log(f"  profile_opus_load on the card, {PROFILE_PACKETS} packets "
+        f"({len(data)} bytes, {PROFILE_PACKETS * 0.02:.0f} s stereo):")
+    for line in prof.report().splitlines():
+        log(f"    {line}")
+
+    gbps, tflops = profiling.device_peak_gbps(), profiling.device_peak_tflops()
+    check(gbps is not None and tflops is not None,
+          f"no published peaks for {torch.cuda.get_device_name(0)!r}")
+    log(f"  peaks by name: {gbps} GB/s, {tflops} TFLOP/s float32 for "
+        f"{torch.cuda.get_device_name(0)!r}; nvidia-smi: {card}")
+    cost = profiling.op_cost(step, *args)
+    check(cost.get("flops", 0) > 0 and cost.get("bytes", 0) > 0,
+          f"op_cost of the entry step: {cost}")
+    log(f"  op_cost of the entry step: {cost['flops'] / 1e9:.3f} GFLOP "
+        f"(products only), {cost['bytes'] / 1e6:.1f} MB unfused; "
+        f"{profiling.flops_report(cost['flops'], entry_ms / 1e3)}")
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="trace_", dir=ROOT))
+    try:
+        with profiling.device_trace(str(tmp)):
+            step(*args)
+            torch.cuda.synchronize()
+        files = list(tmp.glob("trace_*.json"))
+        check(len(files) == 1, f"device_trace wrote {files}")
+        events = json.loads(files[0].read_text()).get("traceEvents", [])
+        names = [e.get("name", "") for e in events
+                 if e.get("cat") == "kernel"]
+        warm = sum(1 for nm in names if "spin" in nm)
+        kernels = len(names) - warm
+        check(kernels > 0 and any("comb" in nm for nm in names),
+              f"device_trace of the entry step holds {kernels} kernel "
+              f"events (K1 among them: "
+              f"{any('comb' in nm for nm in names)})")
+        log(f"  device_trace of the entry step: {files[0].stat().st_size} "
+            f"bytes, {len(events)} events, {kernels} device kernel events "
+            f"with K1; the warm-up lost "
+            f"{profiling.WARMUP_KERNELS - warm} of its "
+            f"{profiling.WARMUP_KERNELS} kernels")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  config: {config.current()}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"  phase 12 took {phase_s:.1f} s; K1 launches in the sharded step "
+        f"{launches}")
+    return {"entry_err": err, "entry_ms": entry_ms, "k1_launches": launches,
+            "k1_ms": k_ms, "k1_err": [ae, re], "k1_bound_ms": bound,
+            "step_s": step_s, "gloo_err": e8, "gloo_s": gloo_s,
+            "nccl": nccl, "profile": prof.stages, "peaks": [gbps, tflops],
+            "op_cost": cost, "trace_kernel_events": kernels,
+            "trace_warmup_lost": profiling.WARMUP_KERNELS - warm,
+            "phase_s": phase_s, "card": card}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -3130,15 +3310,19 @@ def main() -> int:
     encode = phase10_encode(nqt, comb, card, dev)
     torch.cuda.empty_cache()
     seek = phase11_seek(nqt, comb, card, dev)
+    torch.cuda.empty_cache()
+    mesh = phase12_mesh(comb, card, dev)
     for row in rows:
         if row["name"] == "comb_filter":
             row["launches_opus_general"] = general["k1_launches"]
             row["launches_encode_round_trips"] = encode["k1_launches"]
             row["launches_seek"] = seek["k1_launches"]
+            row["launches_mesh"] = mesh["k1_launches"]
+            row["ms_mesh"] = mesh["k1_ms"]
     log(json.dumps({"serving": serve, "mp3": mp3, "mpc": mpc,
                     "vorbis": vorbis, "pcm": pcm_rows, "lossless": lossless,
                     "opus_general": general, "encode": encode,
-                    "seek": seek, "card": card}))
+                    "seek": seek, "mesh": mesh, "card": card}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": list(rows)}), flush=True)

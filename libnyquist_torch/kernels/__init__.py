@@ -25,6 +25,17 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 _LIBS: dict = {}
 _LOCK = threading.Lock()
 build_log: dict = {}     # name -> nvcc's -Xptxas -v report of the last build
+# Bytes the kernels' launches moved, summed: each input read once, each
+# output written once. The kernels launch through ctypes, so no aten op
+# sees this traffic; utils.profiling.op_cost adds what a call added.
+launch_bytes = 0
+
+
+def count_bytes(*tensors) -> None:
+    """Add the bytes of one launch's inputs and outputs to launch_bytes
+    (the wrappers in ops/ call this where they launch)."""
+    global launch_bytes
+    launch_bytes += sum(t.nbytes for t in tensors)
 
 
 def nvcc_path() -> str:

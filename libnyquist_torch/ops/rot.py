@@ -270,6 +270,7 @@ def rotate_plane_cuda(x, pk, th, g, sigmas, band_off):
         if rc != 0:
             raise RuntimeError(f"rot kernel launch failed: CUDA error {rc}")
         rotate_plane_cuda.launches += 1
+        kernels.count_bytes(x, pk, th, g, y)
     else:
         y.copy_(x)
     return y
