@@ -154,13 +154,28 @@ failure exits non-zero before the result line:
    512-frame chunk) on the card, K1's launches counted from 0 over it
    and K1 held against its plain version on the step's own inputs
    (1e-5), its kernel ms by CUDA events; the card's world 1 at (16, 16)
-   against 8 gloo ranks on the CPU (1e-5); NCCL ranks across the cards
-   where there are two or more (tools/mesh_nccl_check.py's run_case),
+   against 8 gloo ranks on the CPU (1e-5); the serving mesh (dp, 1, 1)
+   for dp 2, 4, 8 at (16, 16) and (16, 512): each dp slice's rows
+   through the step a serving rank runs, on the card with singleton
+   axes, torch.equal to world 1's (tools/mesh_nccl_check.py's
+   dp_slices); NCCL ranks across the cards where there are two or more
+   (run_case: the mixed mesh within 1e-5, the serving mesh bit-equal),
    else a line saying so; a CUDA request for more ranks than cards
    raises; profile_opus_load on the card (a CELT stream of 3,000 packets
    cycling the serving cases) with its report; the card's peaks by name;
    a device_trace of the single-card step that must hold its kernels, K1
-   among them; op_cost of the step and of K1 (at least K1's bytes).
+   among them; op_cost of the step, and of K1 equal to K1's reported
+   bytes plus its history copy.
+13. malformed-input phase: every route of load() (tools/
+   malformed_inputs.py: Ogg FLAC, FLAC, WavPack, Musepack SV7 and SV8,
+   MP3 Layer I and II, Opus multistream and CELT-only, Vorbis floor 0
+   and 1, IMA-ADPCM WAV, AIFF-C ima4, CAF) under seeded truncations and
+   byte mutations, about 200 decodes: on the card each raises a
+   NyquistError where the CPU raises one, or equals the CPU's samples
+   (1e-5 of max(|ref|, 1); equal bits for integer PCM, FLAC and
+   WavPack); after each route the card synchronizes and decodes a valid
+   file of the route as the CPU does, so no device-side assert broke
+   the context.
 Phases 4 to 6 print host seconds and host audio-seconds per second,
 device seconds and the device realtime factor, and the bounds reckoned
 from the shapes (float ops at the card's float32 peak outside the tensor
@@ -1474,37 +1489,11 @@ def phase6_vorbis(nqt, card, dev):
 # --------------------------------------------------------------------------
 # phase 7: PCM containers written here with struct
 # --------------------------------------------------------------------------
-def wav_file(fmt_code, ch, rate, bits, payload, block_align=None, fact=None):
-    """A RIFF/WAVE file around ``payload`` (fmt, optional fact, data)."""
-    ba = block_align or ch * bits // 8
-    body = b"WAVE" + b"fmt " + struct.pack(
-        "<IHHIIHH", 16, fmt_code, ch, rate, rate * ba, ba, bits)
-    if fact is not None:
-        body += b"fact" + struct.pack("<II", 4, fact)
-    body += b"data" + struct.pack("<I", len(payload)) + payload
-    if len(payload) & 1:
-        body += b"\0"
-    return b"RIFF" + struct.pack("<I", len(body)) + body
-
-
-def aifc_file(comp, ch, bits, payload, frames, rate=44100):
-    """An AIFF-C file: FORM AIFC, COMM with a compression type, SSND."""
-    exp = rate.bit_length() - 1
-    f80 = struct.pack(">HQ", 16383 + exp, rate << (63 - exp))
-    comm = struct.pack(">hIh", ch, frames, bits) + f80 + comp + b"\0\0"
-    body = b"AIFC" + b"COMM" + struct.pack(">I", len(comm)) + comm
-    body += b"SSND" + struct.pack(">III", len(payload) + 8, 0, 0) + payload
-    if len(payload) & 1:
-        body += b"\0"
-    return b"FORM" + struct.pack(">I", len(body)) + body
-
-
-def caf_file(fid, flags, bpp, fpp, ch, bpc, payload, rate=44100.0):
-    """A CAF file: caff header, desc, data (edit count, then samples)."""
-    desc = struct.pack(">d4sIIIII", rate, fid, flags, bpp, fpp, ch, bpc)
-    return (b"caff\x00\x01\x00\x00" + b"desc" + struct.pack(">q", len(desc))
-            + desc + b"data" + struct.pack(">q", len(payload) + 4)
-            + b"\0\0\0\0" + payload)
+def file_writers():
+    """tools/malformed_inputs.py's struct writers: (wav_file, aifc_file,
+    caf_file)."""
+    tool = load_tool("malformed_inputs")
+    return tool.wav_file, tool.aifc_file, tool.caf_file
 
 
 def scalar_ima(nibbles, pred, step):
@@ -1531,6 +1520,7 @@ def pcm_inputs(rng):
     from libnyquist_torch.formats import aiff
     from libnyquist_torch.ops import adpcm, pcm
 
+    wav_file, aifc_file, caf_file = file_writers()
     frames = int(PCM_SECONDS * 44100)
     out = []
 
@@ -2626,7 +2616,7 @@ def seek_stream(name: str) -> bytes:
         return b.sv8_with_seek_table(313, block_pwr=2, n_ap=MPC_FRAMES // 4)
     payload = np.random.default_rng(314).integers(
         0, 256, int(PCM_SECONDS * 44100) * 4, np.uint8).tobytes()
-    return wav_file(1, 2, 44100, 16, payload)
+    return file_writers()[0](1, 2, 44100, 16, payload)
 
 
 def _seek_stream_job(name):
@@ -3164,17 +3154,27 @@ def phase12_mesh(comb, card, dev):
     nbytes, flops = comb_work(B, n)
     bound = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
     k_cost = profiling.op_cost(comb.comb_filter_cuda, *k_args)
-    check(k_cost.get("bytes", 0) >= nbytes,
-          f"op_cost of K1 {k_cost} holds less than its {nbytes} bytes")
-    log(f"  op_cost of K1 in the shard: {k_cost['bytes'] / 1e6:.2f} MB "
-        f"(the kernel's {nbytes / 1e6:.2f} MB, the output's allocation "
-        f"and the history copy)")
+    # the wrapper reports its inputs and its output y read or written
+    # once; the new history is a copy of y's last HIST samples a row
+    reported = sum(t.nbytes for t in k_args) + k_args[0].nbytes
+    hist_copy = 2 * 4 * B * comb.HIST
+    check(k_cost.get("bytes") == reported + hist_copy,
+          f"op_cost of K1 {k_cost} is not the kernel's {reported} bytes "
+          f"and the {hist_copy}-byte history copy")
+    log(f"  op_cost of K1 in the shard: {k_cost['bytes'] / 1e6:.2f} MB = "
+        f"the kernel's reported {reported / 1e6:.2f} MB + the history "
+        f"copy {hist_copy / 1e6:.2f} MB (the function's bytes "
+        f"{nbytes / 1e6:.2f} MB)")
+    fn, fn_args, _ = entry.sharded_decode_step(1, rows=rows, F=F,
+                                               return_fn=True, device=dev)
+    step_ms = cuda_ms(lambda: fn(*fn_args), reps=7)
     log(f"  sharded_decode_step(1, rows={rows}, F={F}) on the card: "
         f"{step_s:.2f} s host wall (inputs made and uploaded, one step); "
+        f"the local step {step_ms:.3f} ms by CUDA events; "
         f"K1 {launches} launch(es), kernel {k_ms:.3f} ms by CUDA events "
         f"(bound {bound:.4f} ms), {int(taken.max())} steps in the slowest "
         f"row; {card}")
-    del captured, k_args
+    del captured, k_args, fn, fn_args
 
     # the card's world 1 against 8 gloo ranks on the CPU
     rows, F = MESH_SMALL
@@ -3191,14 +3191,33 @@ def phase12_mesh(comb, card, dev):
         f"{gloo_s:.1f} s")
     n_cards = torch.cuda.device_count()
     nccl_tool = load_tool("mesh_nccl_check")
+    # the serving mesh bit-equal to world 1: each dp slice's rows through
+    # the step a serving rank runs, on card 0 with singleton axes
+    slices, layouts = {}, {}
+    for shape in (MESH_SMALL, MESH_SERVE):
+        slices[shape] = nccl_tool.dp_slices(*shape, dps=(2, 4, 8),
+                                            device=dev)
+        others = layouts[shape] = nccl_tool.other_layouts(*shape, 4, dev)
+        for dp, (equal, e) in slices[shape].items():
+            check(equal, f"serving mesh ({dp}, 1, 1) at {shape}: a dp "
+                  f"slice is {e:.3e} off world 1, not bit-equal")
+        log(f"  serving mesh (dp, 1, 1) at {shape}, dp 2, 4, 8: every dp "
+            f"slice's rows torch.equal to world 1's on the card; a "
+            f"quarter of the rows as one product against the same rows "
+            f"of the product over all, bit-equal: "
+            + ", ".join(f"{k} {eq} ({e:.2e})"
+                        for k, (eq, e) in others.items()) + f"; {card}")
     nccl = None
     if n_cards >= 2:
-        nccl = nccl_tool.run_case(nccl_tool.ranks_for(n_cards), rows, F,
-                                  serving=False)
-        log(f"  {nccl['ranks']} NCCL ranks {nccl['mesh']} on "
-            f"{nccl['ranks']} cards vs world 1 at ({rows}, {F}): "
-            f"{nccl['err']:.2e}; K1 launches a rank {nccl['k1_launches']}; "
-            f"{nccl['wall_s']:.1f} s with the spawn")
+        nccl = [nccl_tool.run_case(nccl_tool.ranks_for(n_cards), rows, F,
+                                   serving=serving)
+                for serving in (False, True)]
+        for row in nccl:
+            log(f"  {row['ranks']} NCCL ranks {row['mesh']} on "
+                f"{row['ranks']} cards vs world 1 at ({rows}, {F}): "
+                f"{row['err']:.2e}, bit-equal {row['bit_equal']}; K1 "
+                f"launches a rank {row['k1_launches']}; "
+                f"{row['wall_s']:.1f} s with the spawn")
     else:
         log("  collectives on the card were not run (1 card): NCCL takes "
             "one card a rank; tools/mesh_nccl_check.py runs them on a "
@@ -3260,11 +3279,119 @@ def phase12_mesh(comb, card, dev):
         f"{launches}")
     return {"entry_err": err, "entry_ms": entry_ms, "k1_launches": launches,
             "k1_ms": k_ms, "k1_err": [ae, re], "k1_bound_ms": bound,
-            "step_s": step_s, "gloo_err": e8, "gloo_s": gloo_s,
+            "step_s": step_s, "step_ms": step_ms, "gloo_err": e8,
+            "gloo_s": gloo_s,
+            "dp_slices": {str(k): v for k, v in slices.items()},
+            "other_layouts_dp4": {str(k): v for k, v in layouts.items()},
+            "k1_op_cost_bytes": k_cost["bytes"],
             "nccl": nccl, "profile": prof.stages, "peaks": [gbps, tflops],
             "op_cost": cost, "trace_kernel_events": kernels,
             "trace_warmup_lost": profiling.WARMUP_KERNELS - warm,
             "phase_s": phase_s, "card": card}
+
+
+# ----------------------------------------------------------------------
+# phase 13: malformed input through every route of load()
+# ----------------------------------------------------------------------
+MALFORMED_CORRUPTIONS = 4         # seeded 8-byte mutations an input
+MALFORMED_HEADER_FLIPS = 3        # single flipped bytes in the first 96
+
+
+def malformed_decode(nqt, data, ext, dev):
+    """(float64 samples or None, the NyquistError's text or None)."""
+    from libnyquist_torch.errors import NyquistError
+
+    try:
+        a = nqt.load(data, extension=ext, device=dev)
+    except NyquistError as e:
+        return None, f"{type(e).__name__}: {e}"
+    return np.asarray(a.samples, np.float64), None
+
+
+def phase13_malformed(nqt, card, dev):
+    """Each route's valid inputs, truncated and mutated, through load()
+    on the card against the CPU; then a valid decode of the route on
+    the card again."""
+    tool = load_tool("malformed_inputs")
+    t_phase = time.perf_counter()
+    inputs = tool.inputs()
+    routes = {}
+    for name, inp in inputs.items():
+        routes.setdefault(inp.route, []).append(name)
+    log(f"phase 13: malformed input, {len(inputs)} inputs over "
+        f"{len(routes)} routes of load()")
+    rows = {}
+    for route, names in routes.items():
+        t0 = time.perf_counter()
+        n = raised = decoded = 0
+        worst_err = 0.0
+        for name in names:
+            inp = inputs[name]
+            rng = np.random.default_rng(sum(name.encode()))
+            flips = tool.header_flips(inp.data)
+            pick = rng.choice(len(flips), MALFORMED_HEADER_FLIPS,
+                              replace=False)
+            muts = (tool.truncations(inp.data)
+                    + tool.corruptions(inp.data, sum(name.encode()) + 1,
+                                       MALFORMED_CORRUPTIONS)
+                    + [flips[i] for i in sorted(pick)])
+            for k, data in enumerate(muts):
+                where = f"malformed {route}: {name} #{k}"
+                try:
+                    got, g_err = malformed_decode(nqt, data, inp.ext, dev)
+                except Exception as e:          # not a NyquistError
+                    fail(f"{where} on the card raised {type(e).__name__}: "
+                         f"{e}")
+                ref, r_err = malformed_decode(nqt, data, inp.ext, "cpu")
+                n += 1
+                if got is None:
+                    check(ref is None, f"{where}: the card raised "
+                          f"{g_err!r}, the CPU decoded")
+                    check("CUDA" not in g_err, f"{where}: {g_err}")
+                    raised += 1
+                    continue
+                check(ref is not None and got.shape == ref.shape,
+                      f"{where}: the card decoded {got.shape}, the CPU "
+                      f"{'raised ' + repr(r_err) if ref is None else ref.shape}")
+                e = float(np.abs(got - ref).max()) if got.size else 0.0
+                if inp.tol is None:
+                    check(np.array_equal(got, ref, equal_nan=True),
+                          f"{where}: card vs CPU {e}")
+                else:
+                    e /= max(float(np.abs(ref).max()) if ref.size else 0.0,
+                             1.0)
+                    check(e <= 1e-5, f"{where}: card vs CPU {e:.3e}")
+                worst_err = max(worst_err, e)
+                decoded += 1
+        try:
+            torch.cuda.synchronize()
+        except Exception as e:
+            fail(f"malformed {route}: the card does not synchronize after "
+                 f"the pass: {type(e).__name__}: {e}")
+        name = names[0]
+        inp = inputs[name]
+        got, g_err = malformed_decode(nqt, inp.data, inp.ext, dev)
+        ref, _ = malformed_decode(nqt, inp.data, inp.ext, "cpu")
+        check(got is not None and ref is not None and got.shape == ref.shape,
+              f"malformed {route}: {name} does not decode on the card after "
+              f"the pass ({g_err})")
+        e_valid = float(np.abs(got - ref).max()) / max(
+            float(np.abs(ref).max()), 1.0)
+        check(e_valid == 0.0 if inp.tol is None else e_valid <= 1e-5,
+              f"malformed {route}: {name} after the pass, card vs CPU "
+              f"{e_valid:.3e}")
+        route_s = time.perf_counter() - t0
+        rows[route] = dict(inputs=n, raised=raised, decoded=decoded,
+                           worst_err=worst_err, valid_err=e_valid,
+                           seconds=route_s)
+        log(f"  {route}: {n} inputs from {len(names)} file(s), {raised} "
+            f"raised a NyquistError on the card and the CPU, {decoded} "
+            f"decoded as on the CPU (worst {worst_err:.2e}); then "
+            f"{name} on the card vs the CPU {e_valid:.2e}; {route_s:.1f} s")
+    phase_s = time.perf_counter() - t_phase
+    log(f"  phase 13 took {phase_s:.1f} s, "
+        f"{sum(r['inputs'] for r in rows.values())} mutated inputs; {card}")
+    return {"routes": rows, "phase_s": phase_s, "card": card}
 
 
 def main() -> int:
@@ -3312,6 +3439,8 @@ def main() -> int:
     seek = phase11_seek(nqt, comb, card, dev)
     torch.cuda.empty_cache()
     mesh = phase12_mesh(comb, card, dev)
+    torch.cuda.empty_cache()
+    malformed = phase13_malformed(nqt, card, dev)
     for row in rows:
         if row["name"] == "comb_filter":
             row["launches_opus_general"] = general["k1_launches"]
@@ -3322,7 +3451,8 @@ def main() -> int:
     log(json.dumps({"serving": serve, "mp3": mp3, "mpc": mpc,
                     "vorbis": vorbis, "pcm": pcm_rows, "lossless": lossless,
                     "opus_general": general, "encode": encode,
-                    "seek": seek, "mesh": mesh, "card": card}))
+                    "seek": seek, "mesh": mesh, "malformed": malformed,
+                    "card": card}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": list(rows)}), flush=True)

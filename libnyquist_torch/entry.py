@@ -30,6 +30,7 @@ from .device import resolve_device
 from .ops import comb as comb_ops
 from .ops import imdct as imdct_ops
 from .ops import scan_iir
+from .ops.scan_iir import row_products
 from .parallel.mesh import (DEEMPH_HALO, axis_sum, factor_mesh, local_mesh,
                             make_mesh, right_halo, run_ranks)
 
@@ -203,13 +204,15 @@ def _local_step(mesh, spec, T0, T1, g0, g1, fade, Tm, Tpm, Tt, halos=None):
     the serving factoring (n, 1, 1) runs with none. ``halos``, when
     given, receives each postfilter pass's history halo."""
     r, f_local, n_local = spec.shape
-    main = spec.reshape(-1, n_local) @ Tm
+    # Every product runs per stream row (scan_iir.row_products): its
+    # shape is then the same for every dp, so a dp slice computes its
+    # rows bit for bit as world 1 does.
+    main = row_products(spec, Tm)
     # Frame f-1 within the shard; the shard-crossing frame's tail comes
     # from the left sp neighbour below.
-    prev = torch.cat([spec.new_zeros(r, 1, n_local), spec[:, :-1]],
-                     dim=1).reshape(-1, n_local)
-    part = (main + prev @ Tpm).reshape(-1)
-    my_tail = spec[:, -1] @ Tt
+    prev = torch.cat([spec.new_zeros(r, 1, n_local), spec[:, :-1]], dim=1)
+    part = (main + row_products(prev, Tpm)).reshape(-1)
+    my_tail = row_products(spec[:, -1:], Tt)
     # tp: the partial contraction and the tail, summed in one call.
     if mesh["tp"].size > 1:
         both = axis_sum(torch.cat([part, my_tail.reshape(-1)]), mesh["tp"])
@@ -235,7 +238,7 @@ def _local_step(mesh, spec, T0, T1, g0, g1, fade, Tm, Tpm, Tt, halos=None):
     dhalo = right_halo(y[:, -DEEMPH_HALO:], mesh["sp"])
     ext = torch.cat([dhalo, y], dim=1)
     ext = nnf.pad(ext, (0, (-ext.shape[1]) % scan_iir.BLOCK))
-    out, _ = scan_iir.deemphasis(ext, ext.new_zeros(r))
+    out, _ = scan_iir.deemphasis(ext, ext.new_zeros(r), per_row=True)
     return out[:, DEEMPH_HALO : DEEMPH_HALO + y.shape[1]] * SCALE
 
 

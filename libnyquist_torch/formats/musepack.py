@@ -683,6 +683,11 @@ def _decode_sv8(data: bytes):
             if max_band > 31:
                 raise DecodeError("mpc: max_band out of range")
             channels = br.read(4) + 1
+            if channels > 2:
+                # Musepack codes one or two channels; the JAX package
+                # synthesizes the left channel under this count
+                raise DecodeError(f"mpc: {channels} channels in the "
+                                  f"stream header")
             ms = bool(br.read(1))
             block_pwr = br.read(3) * 2
             dec = MusepackDecoder(max_band, ms, channels)

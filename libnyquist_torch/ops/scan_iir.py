@@ -43,12 +43,26 @@ def _toeplitz_t(coef: float, device: torch.device) -> torch.Tensor:
     return t
 
 
-def deemphasis(x: torch.Tensor, mem: torch.Tensor, coef: float = COEF):
+def row_products(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """a [B, M, K] @ m [K, P] as B products of [M, K] @ [K, P]: each
+    call's shape, and so the library's reduction order, is the same for
+    every B."""
+    out = a.new_empty(a.shape[0], a.shape[1], m.shape[1])
+    for b in range(a.shape[0]):
+        torch.mm(a[b], m, out=out[b])
+    return out
+
+
+def deemphasis(x: torch.Tensor, mem: torch.Tensor, coef: float = COEF,
+               per_row: bool = False):
     """y[n] = x[n] + coef * y[n-1], batched.
 
     Args:
       x: [B, S] input (S padded to a multiple of BLOCK by the caller).
       mem: [B] carry (previous stream sample's y).
+      per_row: one [S/BLOCK, BLOCK] product per row, so that a row's
+        output does not depend on B (a matrix library may pick another
+        reduction order for another row count).
     Returns (y [B, S], new_mem [B]).
     """
     B, S = x.shape
@@ -56,8 +70,11 @@ def deemphasis(x: torch.Tensor, mem: torch.Tensor, coef: float = COEF):
         raise ValueError(f"deemphasis: S={S} is not a multiple of {BLOCK}")
     nblk = S // BLOCK
     # Within-block solution with zero carry.
-    y0 = (x.reshape(B * nblk, BLOCK) @ _toeplitz_t(coef, x.device)
-          ).reshape(B, nblk, BLOCK)
+    T = _toeplitz_t(coef, x.device)
+    if per_row:
+        y0 = row_products(x.reshape(B, nblk, BLOCK), T)
+    else:
+        y0 = (x.reshape(B * nblk, BLOCK) @ T).reshape(B, nblk, BLOCK)
     # Block carries: c_n = coef^L * c_{n-1} + y0_last[n]; contributions
     # from two blocks back vanish below float32 resolution, so the exact
     # scan reduces to a single shifted multiply-add.

@@ -144,9 +144,13 @@ def profile_load(path: str, device=None) -> StageProfile:
 
 
 class _ByteCounter(TorchDispatchMode):
-    """Sums each aten op's input and output tensor bytes (views move
-    nothing and are skipped): an unfused count, like XLA's "bytes
-    accessed" of an unfused program."""
+    """Sums the bytes each aten op moves: its input tensors read and its
+    output tensors written, an unfused count, like XLA's "bytes
+    accessed" of an unfused program. Views move nothing and are
+    skipped; so are the template input of a factory that only takes
+    its shape (``*_like``, ``new_*``), the output of an allocation
+    (``empty*``, ``new_empty*``) and an ``out=`` argument on the input
+    side (it is written, and counted as the output)."""
 
     def __init__(self):
         super().__init__()
@@ -154,10 +158,19 @@ class _ByteCounter(TorchDispatchMode):
         self.ops = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
         self.ops += 1
         if not func.is_view:
-            leaves, _ = tree_flatten((args, kwargs, out))
+            name = func._schema.name.split("::")[-1]
+            moved = []
+            if not (name.endswith("_like") or name.startswith("new_")):
+                outs = {a.name for a in func._schema.arguments if a.is_out}
+                moved += [args, {k: v for k, v in kwargs.items()
+                                 if k not in outs}]
+            if not (name.startswith("empty") or name.startswith("new_empty")):
+                moved.append(out)
+            leaves, _ = tree_flatten(moved)
             self.bytes += sum(t.nbytes for t in leaves
                               if isinstance(t, torch.Tensor))
         return out
@@ -188,7 +201,10 @@ def op_cost(fn, *args) -> dict:
     and output tensors, an unfused count, plus each launch of a
     hand-written kernel (K1, K2) with each of its inputs read once and
     each output written once, which its wrapper reports (the kernels
-    launch through ctypes, where no aten op sees them). On the CPU the
+    launch through ctypes, where no aten op sees them). An allocation
+    moves no byte: ``empty*`` outputs and the templates of ``*_like``
+    and ``new_*`` factories are not counted, while a ``zeros``/``full``
+    output is a write and is. On the CPU the
     plain versions run instead and their aten ops are counted, unfused,
     so a step that holds a kernel counts more bytes there than on the
     card. {} when the call ran no aten op and no kernel."""

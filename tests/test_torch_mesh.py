@@ -162,13 +162,29 @@ def test_each_pass_halo(ranks8):
         assert np.abs(r["halos"][0] - r["halos"][1]).max() > 1e-3
 
 
-def test_serving_mesh_bit_equal_and_collective_free(ranks8, world1):
+@pytest.mark.parametrize("ranks", ["gloo8", "slices dp2", "slices dp4",
+                                   "slices dp8"])
+def test_serving_mesh_bit_equal_and_collective_free(ranks, request):
+    """The serving mesh (dp, 1, 1) bit-equal to world 1: 8 gloo ranks at
+    (8, 16), and each dp slice's rows at (16, 16) through the step a
+    serving rank runs, on one device with singleton axes
+    (tools/mesh_nccl_check.py ``dp_slices``, phase 12 of chip_smoke.py
+    on the card)."""
     from libnyquist_torch import entry
 
-    res = ranks8["serving"]
-    assert {r["shape"] for r in res} == {(8, 1, 1)}
-    assert all(r["calls"] == {} for r in res)
-    assert np.array_equal(entry.assemble(res, 8, 16), world1)
+    if ranks == "gloo8":
+        res = request.getfixturevalue("ranks8")["serving"]
+        assert {r["shape"] for r in res} == {(8, 1, 1)}
+        assert all(r["calls"] == {} for r in res)
+        assert np.array_equal(entry.assemble(res, 8, 16),
+                              request.getfixturevalue("world1"))
+        return
+    dp = int(ranks[-1])
+    spec = importlib.util.spec_from_file_location(
+        "_tool_mesh_nccl_check", ROOT / "tools" / "mesh_nccl_check.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    assert tool.dp_slices(16, 16, (dp,), device="cpu") == {dp: (True, 0.0)}
 
 
 def test_real_content_args_match_jax(content_path):

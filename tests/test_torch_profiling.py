@@ -108,6 +108,48 @@ def test_op_cost_adds_the_bytes_kernel_wrappers_report():
         "bytes": 4.0 * (3 * 4 * 24 + 4 * 1026)}
 
 
+X = torch.ones(6, 10)
+ALLOCATIONS = {
+    # an allocation moves no byte; a fill writes its output once
+    "empty_like": (lambda: torch.empty_like(X), 0),
+    "empty": (lambda: torch.empty(6, 10), 0),
+    "new_empty": (lambda: X.new_empty(3), 0),
+    "zeros_like": (lambda: torch.zeros_like(X), X.nbytes),
+    "full_like": (lambda: torch.full_like(X, 2.0), X.nbytes),
+    "new_zeros": (lambda: X.new_zeros(3), 12),
+    # out=: the output is written once, not also read
+    "mm out=": (lambda: torch.mm(X, X.T, out=torch.empty(6, 6)),
+                2 * X.nbytes + 4 * 36),
+}
+
+
+@pytest.mark.parametrize("name", list(ALLOCATIONS))
+def test_op_cost_counts_no_allocation(name):
+    from libnyquist_torch.utils.profiling import op_cost
+
+    fn, nbytes = ALLOCATIONS[name]
+    assert op_cost(fn)["bytes"] == nbytes
+
+
+def test_op_cost_of_a_kernel_wrapper_is_its_bytes_and_the_copy():
+    """K1's wrapper pattern (ops/comb.py comb_filter_cuda): an output
+    allocated with empty_like, the launch's reported bytes, then the
+    history copied out of the output. op_cost is the launch's bytes
+    plus the copy read and written, as phase 12 holds K1's."""
+    from libnyquist_torch import kernels
+    from libnyquist_torch.utils.profiling import op_cost
+
+    x = torch.ones(4, 2048)
+
+    def wrapper(x):
+        y = torch.empty_like(x)
+        kernels.count_bytes(x, y)
+        return y[:, -1026:].contiguous()
+
+    assert op_cost(wrapper, x) == {"bytes": 2.0 * x.nbytes
+                                   + 2 * 4 * 4 * 1026}
+
+
 def test_device_peaks_none_on_the_cpu(monkeypatch):
     from libnyquist_torch.utils import profiling
 

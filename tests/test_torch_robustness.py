@@ -1,17 +1,33 @@
-"""Malformed FLAC and WavPack input through the port and the JAX package,
-on the CPU (after tests/test_robustness.py: truncations and seeded byte
-corruption), and malformed input through every lazy seek reader (after
-tests/test_seek.py:319 test_seek_reader_fuzz).
+"""Malformed input through every route of ``load()`` in the port and the
+JAX package, on the CPU (after tests/test_robustness.py: truncations and
+seeded byte corruption), and malformed input through every lazy seek
+reader (after tests/test_seek.py:319 test_seek_reader_fuzz).
 
-The port may reject an input the JAX package decodes (its C refuses
-what the JAX package's Python fallbacks accept) but never raises outside
-the NyquistError hierarchy; an input both packages decode gives the same
-samples bit for bit, with the same metadata. Through the seek readers,
-reads both packages complete give the same samples within the reader's
-tolerance of tests/test_torch_streaming.py, or a longer read from the
-port where the JAX reader's window missed its target, and the same read
-counts (for the readers whose windows differ by design, the same counts
-after open).
+The inputs are tools/malformed_inputs.py's (chip_smoke.py phase 13 runs
+them on the card): Ogg FLAC, FLAC, WavPack (hybrid, DSD fast and high,
+integer and float writer streams), Musepack SV7 and SV8, MP3 Layer I and
+II, Ogg Opus (a family-1 multistream file and a single-stream CELT-only
+file, the native scan route), Vorbis floor 0 and floor 1, IMA-ADPCM WAV,
+AIFF-C ima4 and CAF. The port never raises outside the NyquistError
+hierarchy, and a codec's output is finite (the reference's policy,
+tests/test_robustness.py:276-281; a float container passes its own bits
+through). An input both packages decode gives the same metadata and the
+same samples: equal bits for FLAC, WavPack and integer PCM, within
+1e-5 of max(|ref|, 1) for MP3 and Musepack, 1e-4 for Opus and Vorbis
+(each format's own parity test).
+
+The port may reject an input the JAX package decodes, where the JAX
+package's Python takes what the port's C or its header checks refuse:
+FLAC and WavPack (the JAX package's Python fallbacks of the native
+planes), Musepack (an SV8 stream header of more than two channels, of
+which the JAX package synthesizes the left channel only). The port
+decodes some CELT-only Opus files the JAX package's raw CELT decode
+raises on (ROADMAP.md section 3). Through the seek readers, reads both
+packages complete give the same samples within the reader's tolerance
+of tests/test_torch_streaming.py, or a longer read from the port where
+the JAX reader's window missed its target, and the same read counts
+(for the readers whose windows differ by design, the same counts after
+open).
 """
 
 import importlib.util
@@ -22,11 +38,11 @@ import pytest
 
 import libnyquist_torch as nqt
 import libnyquist_tpu as nq
+from libnyquist_torch.audio_data import PCMFormat
 from libnyquist_torch.errors import NyquistError
 from libnyquist_tpu.errors import NyquistError as JNyquistError
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FIXTURES = ROOT / "tests" / "fixtures"
 
 
 def _tool(name):
@@ -37,25 +53,10 @@ def _tool(name):
     return mod
 
 
-def _inputs():
-    fs, ws = _tool("flac_stream"), _tool("wv_stream")
-    return {
-        "kitty8_dithered.oga": ((FIXTURES / "kitty8_dithered.oga").read_bytes(),
-                                "ogg"),
-        "flac writer": (fs.make_flac_stream(70, 0.5, blocksize=None)[0],
-                        "flac"),
-        "hybrid_stereo.wv": ((FIXTURES / "hybrid_stereo.wv").read_bytes(),
-                             "wv"),
-        "dsd_fast.wv": ((FIXTURES / "dsd_fast.wv").read_bytes(), "wv"),
-        "dsd_high.wv": ((FIXTURES / "dsd_high.wv").read_bytes(), "wv"),
-        "wv writer": (ws.make_wv_stream(71, 0.5, "int16_joint",
-                                        block_samples=4000), "wv"),
-        "wv writer float": (ws.make_wv_stream(72, 0.3, "float32_wvx",
-                                              block_samples=3000), "wv"),
-    }
-
-
-INPUTS = _inputs()
+MI = _tool("malformed_inputs")
+INPUTS = MI.inputs()
+# formats that pass the file's own IEEE bits through, NaN and Inf included
+FLOAT_CONTAINERS = (PCMFormat.PCM_FLT, PCMFormat.PCM_DBL)
 
 
 @pytest.fixture(autouse=True)
@@ -64,21 +65,28 @@ def _jax_scalar_route(monkeypatch):
     monkeypatch.setenv("LIBNYQUIST_NO_WV_SIMD", "1")
 
 
-def _try_both(data: bytes, ext: str):
+def _try_both(data: bytes, ext: str, tol=None):
     """(port result or None, JAX result or None); a port exception outside
-    the hierarchy fails the test."""
+    the hierarchy fails the test. ``tol``: None for equal bits, else the
+    share of max(|ref|, 1) the samples may differ by."""
     try:
         got = nqt.load(data, extension=ext, device="cpu")
     except NyquistError:
         got = None
+    if got is not None and got.source_format not in FLOAT_CONTAINERS:
+        assert np.isfinite(got.samples).all()
     try:
         ref = nq.load(data, extension=ext)
     except JNyquistError:
         ref = None
     if got is not None and ref is not None:
         assert got.samples.shape == ref.samples.shape
-        assert np.array_equal(got.samples.view(np.int32),
-                              ref.samples.view(np.int32))
+        if tol is None:
+            assert np.array_equal(got.samples.view(np.int32),
+                                  ref.samples.view(np.int32))
+        elif ref.samples.size:
+            err = float(np.abs(got.samples - ref.samples).max())
+            assert err <= tol * max(float(np.abs(ref.samples).max()), 1.0)
         assert (got.sample_rate, got.channel_count) == (ref.sample_rate,
                                                         ref.channel_count)
         assert got.source_format.name == ref.source_format.name
@@ -87,41 +95,48 @@ def _try_both(data: bytes, ext: str):
 
 @pytest.mark.parametrize("name", list(INPUTS))
 def test_truncations(name):
-    data, ext = INPUTS[name]
-    n = len(data)
-    for frac in (0.01, 0.1, 0.45, 0.8):
-        _try_both(data[: max(4, int(n * frac))], ext)
+    inp = INPUTS[name]
+    for data in MI.truncations(inp.data):
+        _try_both(data, inp.ext, inp.tol)
 
 
 @pytest.mark.parametrize("name", list(INPUTS))
 def test_byte_corruption(name):
-    data, ext = INPUTS[name]
-    data = data[:65536]
-    rng = np.random.default_rng(sum(name.encode()))
-    for _ in range(6):
-        bad = bytearray(data)
-        for _ in range(8):
-            bad[int(rng.integers(0, len(bad)))] = int(rng.integers(0, 256))
-        _try_both(bytes(bad), ext)
+    inp = INPUTS[name]
+    for data in MI.corruptions(inp.data, sum(name.encode())):
+        _try_both(data, inp.ext, inp.tol)
 
 
 @pytest.mark.parametrize("name", list(INPUTS))
 def test_header_corruption(name):
     """The first 96 bytes (container, STREAMINFO or block header and the
     first metadata) one byte at a time, every eighth byte flipped."""
-    data, ext = INPUTS[name]
-    data = data[:65536]
-    for pos in range(0, min(96, len(data)), 8):
-        bad = bytearray(data)
-        bad[pos] ^= 0xFF
-        _try_both(bytes(bad), ext)
+    inp = INPUTS[name]
+    for data in MI.header_flips(inp.data):
+        _try_both(data, inp.ext, inp.tol)
 
 
 @pytest.mark.parametrize("name", list(INPUTS))
 def test_intact_input_decodes_in_both(name):
-    data, ext = INPUTS[name]
-    got, ref = _try_both(data, ext)
+    inp = INPUTS[name]
+    got, ref = _try_both(inp.data, inp.ext, inp.tol)
     assert got is not None and ref is not None
+
+
+def test_sv8_more_than_two_channels_raises():
+    """An SV8 stream header of 15 channels: the port raises at the header
+    (the JAX package synthesizes the left channel under that count)."""
+    from libnyquist_torch.errors import DecodeError
+
+    data = bytearray(INPUTS["sv8 assembled"].data)
+    # the SH body (after its key and one size byte): CRC, version, two
+    # bytes of total samples, one of silence, rate and max band, then
+    # the channel count less one in the next byte's high nibble
+    pos = data.index(b"SH") + 3 + 9
+    data[pos] = (data[pos] & 0x0F) | 0xE0
+    with pytest.raises(DecodeError, match="15 channels"):
+        nqt.load(bytes(data), extension="mpc", device="cpu")
+    assert nq.load(bytes(data), extension="mpc").channel_count == 15
 
 
 # one input per lazy reader type (tests/test_torch_streaming.py builds them)

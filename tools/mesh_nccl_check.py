@@ -2,21 +2,37 @@
 """The sharded decode step over NCCL ranks, one card a rank, against
 world 1 on card 0.
 
-    python3 tools/mesh_nccl_check.py
+    python3 tools/mesh_nccl_check.py [--one-card] [--root DIR]
 
 Needs two or more CUDA cards on one machine (nvcc for K1, as
-chip_smoke.py). Uses the largest power of two of them, up to 8. For
+chip_smoke.py), and uses the largest power of two of them, up to 8. For
 (rows, F) = (16, 16) and (16, 512), on the mixed mesh (factor_mesh) and
-the serving mesh (n, 1, 1): the assembled output against world 1 (1e-5
-of max(|ref|, 1)), each rank's collective calls (the serving mesh makes
-none) and its K1 launches (sp a step), and the case's wall time, the
-ranks' spawn and NCCL set-up included. Then dryrun_multichip over the
+the serving mesh (n, 1, 1): the assembled output against world 1, each
+rank's collective calls (the serving mesh makes none) and its K1
+launches (sp a step), and the case's wall time, the ranks' spawn and
+NCCL set-up included. The mixed mesh is held within 1e-5 of max(|ref|,
+1); the serving mesh is held to bit equality, as the JAX package holds
+its (n, 1, 1) mesh (tests/test_mesh.py). Then dryrun_multichip over the
 cards, and a request for one rank more than there are cards, which must
-raise. One JSON line a case; the last line is "MESH NCCL OK".
+raise. One JSON line a case (``bit_equal`` in each); the last line is
+"MESH NCCL OK".
 
-chip_smoke.py phase 12 runs ``run_case`` (the mixed mesh at (16, 16))
-where a machine has two or more cards, and ``check_too_many_ranks`` on
-every machine; a failed check raises.
+``--one-card`` needs one card and runs no collective: per shape,
+``dp_slices``, ``other_layouts`` and world 1's step time.
+``--root DIR`` imports libnyquist_torch from another checkout (a
+parent's, to compare on the same card).
+
+``dp_slices`` is the serving mesh's check on one device and without a
+collective: each dp slice's rows through the step a serving rank runs,
+against world 1's rows. ``other_layouts`` shows on the library alone
+why the step's products run one per stream row: a flat product and a
+batched one both pick their reduction order by the row or batch count.
+
+chip_smoke.py phase 12 runs ``dp_slices`` and ``other_layouts`` on card
+0, ``run_case`` (the
+mixed and the serving mesh at (16, 16)) where a machine has two or more
+cards, and ``check_too_many_ranks`` on every machine; a failed check
+raises.
 """
 
 from __future__ import annotations
@@ -59,6 +75,9 @@ def run_case(n: int, rows: int, F: int, serving: bool) -> dict:
                k1_launches=[r["comb_launches"] for r in res])
     if err > 1e-5:
         raise RuntimeError(f"{n} NCCL ranks {shape} vs world 1: {err:.3e}")
+    if serving and not row["bit_equal"]:
+        raise RuntimeError(f"the serving mesh {shape} is {err:.3e} off "
+                           f"world 1, not bit-equal")
     if row["k1_launches"] != [shape[1]] * n:
         raise RuntimeError(f"K1 launches a rank {row['k1_launches']} "
                            f"differ from sp = {shape[1]}")
@@ -66,6 +85,61 @@ def run_case(n: int, rows: int, F: int, serving: bool) -> dict:
         raise RuntimeError(f"the serving mesh made collective calls "
                            f"{row['calls']}")
     return row
+
+
+def dp_slices(rows: int, F: int, dps=(2, 4, 8), device="cuda") -> dict:
+    """Each dp slice of the serving mesh (dp, 1, 1), its rows run through
+    entry._local_step on one device with singleton axes (what that
+    serving rank runs; it makes no collective), against world 1's rows
+    on the same device. Returns {dp: (bit_equal over the slices, max abs
+    error)}."""
+    from libnyquist_torch import entry
+    from libnyquist_torch.parallel.mesh import local_mesh
+
+    def run(dp, d):
+        mesh = local_mesh((dp, 1, 1), device)
+        mesh["dp"].index = d
+        return entry._local_step(mesh, *entry._shard_args(mesh, rows, F,
+                                                          None))
+
+    one = run(1, 0)
+    out = {}
+    for dp in dps:
+        r, equal, err = rows // dp, True, 0.0
+        for d in range(dp):
+            got, ref = run(dp, d), one[d * r : (d + 1) * r]
+            equal = equal and torch.equal(got, ref)
+            err = max(err, float((got - ref).abs().max()))
+        out[dp] = (equal, err)
+    return out
+
+
+def other_layouts(rows: int, F: int, dp: int, device="cuda") -> dict:
+    """The two product layouts that do not hold the serving mesh
+    bit-equal, checked on the library alone: the first 1/dp of the
+    step's stream rows times the main synthesis matrix as one flat
+    product ("flat mm", the layout before per-row products) and as one
+    batched product of a matrix a row ("bmm"), each against the same
+    rows of the product over all rows. Returns {layout: (bit_equal,
+    max abs error)}."""
+    from libnyquist_torch import entry
+    from libnyquist_torch.parallel.mesh import local_mesh
+
+    args = entry._shard_args(local_mesh((1, 1, 1), device), rows, F, None)
+    spec, Tm = args[0], args[6]
+    q = rows // dp
+
+    def flat(x):
+        return (x.reshape(-1, x.shape[-1]) @ Tm).view(x.shape[0], F, -1)
+
+    def bmm(x):
+        return torch.bmm(x, Tm.expand(x.shape[0], *Tm.shape))
+
+    out = {}
+    for name, f in (("flat mm", flat), ("bmm", bmm)):
+        got, ref = f(spec[:q].clone()), f(spec)[:q]
+        out[name] = (torch.equal(got, ref), float((got - ref).abs().max()))
+    return out
 
 
 def check_too_many_ranks(cards: int) -> str:
@@ -84,8 +158,40 @@ def check_too_many_ranks(cards: int) -> str:
     raise RuntimeError(f"dryrun_multichip({want}) ran on {cards} card(s)")
 
 
+def one_card(smi_line: str) -> int:
+    """Card 0 alone, per shape: dp_slices, other_layouts at dp 4 and
+    world 1's local step in ms by CUDA events (median of 7). Returns 1
+    when a dp slice is not bit-equal."""
+    from libnyquist_torch import entry
+
+    bad = 0
+    for rows, F in SHAPES:
+        fn, args, _ = entry.sharded_decode_step(1, rows=rows, F=F,
+                                                return_fn=True, device="cuda")
+        times = []
+        for i in range(8):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            fn(*args)
+            b.record()
+            b.synchronize()
+            if i:
+                times.append(a.elapsed_time(b))
+        slices = dp_slices(rows, F)
+        bad += not all(eq for eq, _ in slices.values())
+        print(json.dumps(dict(
+            rows=rows, F=F, card=smi_line, dp_slices=slices,
+            other_layouts=other_layouts(rows, F, 4),
+            step_ms=sorted(times)[len(times) // 2])), flush=True)
+    return int(bad > 0)
+
+
 def main() -> int:
-    sys.path.insert(0, str(ROOT))
+    args = sys.argv[1:]
+    # --root DIR: the libnyquist_torch of another checkout (a parent's)
+    root = pathlib.Path(args[args.index("--root") + 1]).resolve() \
+        if "--root" in args else ROOT
+    sys.path.insert(0, str(root))
     from libnyquist_torch import entry, kernels
 
     smi = subprocess.run(
@@ -93,13 +199,15 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     print("\n".join(smi), flush=True)
+    kernels.load("comb")          # built once here, not by every rank
+    if "--one-card" in args:
+        return one_card(smi[0])
     cards = torch.cuda.device_count()
     if cards < 2:
         print(f"FAIL: {cards} card(s); NCCL ranks need two or more",
               file=sys.stderr)
         return 1
     n = ranks_for(cards)
-    kernels.load("comb")          # built once here, not by every rank
     for rows, F in SHAPES:
         for serving in (False, True):
             row = run_case(n, rows, F, serving)
