@@ -176,6 +176,15 @@ failure exits non-zero before the result line:
    WavPack); after each route the card synchronizes and decodes a valid
    file of the route as the CPU does, so no device-side assert broke
    the context.
+14. bench phase: libnyquist_torch.bench's headline in this process (8
+   stereo streams of the bench stream, golden case 0 repeated to 100 s;
+   3 trials), with its own checks (each stream's first 100 packets
+   against libopus 1e-4, every stream against stream 0 1e-6, K1 and K2
+   against their plain versions 1e-5), and its stage split; every field
+   of its line present and finite, K1 launched once a step and K2 once a
+   stream in one batch; then tools/mesh_nccl_check.py's scaling row of
+   world 1 on card 0 (both meshes at (8, 16): GFLOP and GB by op_cost,
+   step ms by CUDA events in the rank, no collective).
 Phases 4 to 6 print host seconds and host audio-seconds per second,
 device seconds and the device realtime factor, and the bounds reckoned
 from the shapes (float ops at the card's float32 peak outside the tensor
@@ -561,40 +570,6 @@ def rot_work(W: int, nmax: int, R: int, markers: int, ops_done: int):
     return 4 * (2 * nmax + W) * R + 8 * markers, 6 * ops_done + W * R
 
 
-def random_rot_args(R, seed, dev):
-    """A seeded row-major plane [R, 800] with its dense marker planes:
-    per row and band a rotating leaf, a plain leaf, a leaf that ends at
-    half the band, or nothing. Eight sigma classes."""
-    from libnyquist_torch.formats.opus.celt_tables import mode48000
-    from libnyquist_torch.ops.celt_replay import _sigma2_of
-
-    mode = mode48000()
-    band_off = [8 * int(e) for e in mode.eBands[: mode.nbEBands + 1]]
-    W = band_off[-1]
-    rng = np.random.default_rng(seed)
-    x = rng.integers(-4, 5, (W, R)).astype(np.float32)
-    pk = np.full((W, R), -1, np.int32)
-    th = np.zeros((W, R), np.float32)
-    g = np.zeros((W, R), np.float32)
-    sigmas = set()
-    for b in range(len(band_off) - 1):
-        col, n = band_off[b], band_off[b + 1] - band_off[b]
-        kind = rng.integers(0, 4, R)     # 0 none, 1 rotating, 2 plain, 3 half
-        s2 = _sigma2_of(n, 1)
-        rotating = (kind == 1) & (s2 > 0)
-        if rotating.any():
-            sigmas.add(s2)
-        ln = np.where(kind == 3, max(n // 2, 1), n)
-        pk[col] = np.where(
-            kind > 0, (col << 13) | (ln << 4) | (1 + np.where(rotating, s2, 0)),
-            -1)
-        th[col] = np.where(rotating, rng.uniform(0.02, 0.5, R), 0.0)
-        g[col] = np.where(kind > 0, rng.uniform(0.05, 1.0, R), 0.0)
-    planes = [torch.from_numpy(np.ascontiguousarray(a.T)).to(dev)
-              for a in (x, pk, th, g)]
-    return planes + [tuple(sorted(sigmas)), band_off]
-
-
 def edge_rot_args(dev, copies=25, tail=160):
     """Row-major planes [4 * copies, 800 + tail] of edge cases: markers
     whose sub-segment a later marker cuts short (one of them rotating), a
@@ -739,6 +714,8 @@ def check_sigma_first_columns(rot, pk, th, sigmas, band_off, label):
 
 
 def phase1_kernels(comb, rot, probe, trace0, synth, dev):
+    from libnyquist_torch import bench
+
     log("phase 1: kernels against their plain versions on the card")
     K, CC = K_STREAMS, 2
     for B, n in ((4, 140), (8, 257)):       # the reference kernel test
@@ -830,7 +807,7 @@ def phase1_kernels(comb, rot, probe, trace0, synth, dev):
         "sm_clock_mhz": sm_mhz,
     }
 
-    rargs = random_rot_args(300, 7, dev)
+    rargs = bench.random_rot_args(300, 7, dev)
     check(len(rargs[4]) >= 3, "seeded plane needs several sigma classes")
     compare_rot(rot, rargs, f"R=300 W=800 seeded, sigmas {rargs[4]}")
     rargs = edge_rot_args(dev)
@@ -1338,32 +1315,13 @@ def phase5_mpc(nqt, card, dev):
             "vs_float64": err, "batched_vs_single": worst}
 
 
-def vorbis_plan_f64(specs_row: np.ndarray, plan: dict) -> np.ndarray:
-    """One row's mixed-block synthesis in float64 NumPy: the same plan
-    (products by the float64 IMDCT matrices, the lap windows, the two
-    gathers), independent of the device code."""
-    from libnyquist_torch.formats import vorbis
-
-    F = specs_row.shape[0]
-    nmax = plan["nmax"]
-    ns = np.asarray(plan["ns"])
-    tw = np.zeros((F, nmax))
-    for n in sorted(set(plan["ns"])):
-        sel = np.nonzero(ns == n)[0]
-        tw[sel, :n] = specs_row[sel, : n // 2].astype(np.float64) @ \
-            vorbis.imdct_matrix(n).T
-    flat = (tw * plan["W"]).reshape(-1)
-    ip, ic = plan["idx_prev"], plan["idx_cur"]
-    return (np.where(ip >= 0, flat[np.maximum(ip, 0)], 0.0)
-            + np.where(ic >= 0, flat[np.maximum(ic, 0)], 0.0))
-
-
 def phase6_vorbis(nqt, card, dev):
     """The Vorbis serving shape: K floor-1 streams written by
     tools/vorbis_stream.py with one block-size sequence (one lap plan),
     host entropy decode on one core, then the batched device synthesis;
     checks against a float64 evaluation of the plan, single-stream runs
     and load()."""
+    from libnyquist_torch import bench
     from libnyquist_torch.formats import vorbis
     from libnyquist_torch.runtime import serving
 
@@ -1425,7 +1383,7 @@ def phase6_vorbis(nqt, card, dev):
     audio_s = K * out_len / rate
     rate_line("Vorbis batch", audio_s, host_s, dev_ms / 1e3, card)
 
-    ref = vorbis_plan_f64(specs[0], plan)
+    ref = bench.vorbis_plan_f64(specs[0], plan)
     err = float(np.abs(pcm[0].double().cpu().numpy() - ref).max())
     scale = max(float(np.abs(ref).max()), 1.0)
     check(err <= 1e-4 * scale, f"vorbis row 0 vs float64: {err}")
@@ -3394,6 +3352,72 @@ def phase13_malformed(nqt, card, dev):
     return {"routes": rows, "phase_s": phase_s, "card": card}
 
 
+# ----------------------------------------------------------------------
+# phase 14: the port's bench on the card
+# ----------------------------------------------------------------------
+BENCH_STREAMS = 8
+BENCH_TRIALS = 3
+BENCH_FIELDS = ("host_s", "dev_s", "serial_s", "pipelined_s", "gil_gap_pct",
+                "staging_s", "device_gflops", "device_gbytes", "mfu_pct",
+                "hbm_util_pct", "device_busy_pct", "libopus_err",
+                "batch_vs_stream0")
+
+
+def finite(v) -> bool:
+    return isinstance(v, (int, float)) and math.isfinite(v)
+
+
+def phase14_bench(card, dev):
+    """libnyquist_torch.bench's headline at K = 8 with 3 trials and its
+    stage split, in this process; then the scaling table's world-1 row on
+    card 0."""
+    from libnyquist_torch import bench
+    from libnyquist_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    log(f"phase 14: the port's bench, K={BENCH_STREAMS} streams of the bench "
+        f"stream, {BENCH_TRIALS} trials, and the scaling row of world 1")
+    prep = bench._prep_opus_device_batch(BENCH_STREAMS, dev)
+    check(prep is not None, "the bench stream must take the trace path")
+    head = bench.bench_e2e_opus_iy(BENCH_STREAMS, dev, prep=prep,
+                                   trials=BENCH_TRIALS)
+    split = bench._opus_stage_split(BENCH_STREAMS, dev, prep=prep)
+    head["config"]["stage_split"] = split
+    cfg = head["config"]
+    check(head["metric"] == "opus_e2e_decode_realtime_x"
+          and finite(head["value"]) and head["value"] > 0,
+          f"bench headline {head['metric']} = {head['value']}")
+    for key in BENCH_FIELDS:
+        check(finite(cfg.get(key)), f"bench config {key} = {cfg.get(key)}")
+    for key, v in split.items():
+        check(finite(v), f"bench stage split {key} = {v}")
+    check(isinstance(cfg["hidden_syncs_per_batch"], int),
+          f"bench hidden syncs {cfg['hidden_syncs_per_batch']}")
+    check(cfg["trace_warmup_lost"] < profiling.WARMUP_KERNELS,
+          "the bench's trace lost its whole warm-up")
+    check(cfg["k1_per_batch"] == prep["n_steps"]
+          and cfg["k2_per_batch"] == BENCH_STREAMS,
+          f"a bench batch launched K1 {cfg['k1_per_batch']} times (steps "
+          f"{prep['n_steps']}) and K2 {cfg['k2_per_batch']} (streams "
+          f"{BENCH_STREAMS})")
+    log(json.dumps(head))
+    tool = load_tool("mesh_nccl_check")
+    scaling = tool.scaling_rows([1], *tool.SCALING, device="cuda")
+    for row in scaling:
+        check(all(finite(v) and v > 0 for key in
+                  ("gflops_per_rank", "gb_per_rank", "step_ms")
+                  for v in row[key]), f"scaling row {row}")
+        check(row["k1_launches"] == [1] and row["collectives"] == [{}],
+              f"scaling world 1, {row['mesh']} mesh: K1 {row['k1_launches']},"
+              f" collectives {row['collectives']}")
+    log(json.dumps(scaling))
+    log(tool.scaling_table(scaling, card))
+    phase_s = time.perf_counter() - t_phase
+    log(f"  phase 14 took {phase_s:.1f} s; pipelined x{head['value']} on "
+        f"{card}")
+    return {"headline": head, "scaling": scaling, "phase_s": phase_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -3441,6 +3465,8 @@ def main() -> int:
     mesh = phase12_mesh(comb, card, dev)
     torch.cuda.empty_cache()
     malformed = phase13_malformed(nqt, card, dev)
+    torch.cuda.empty_cache()
+    bench_row = phase14_bench(card, dev)
     for row in rows:
         if row["name"] == "comb_filter":
             row["launches_opus_general"] = general["k1_launches"]
@@ -3452,7 +3478,7 @@ def main() -> int:
                     "vorbis": vorbis, "pcm": pcm_rows, "lossless": lossless,
                     "opus_general": general, "encode": encode,
                     "seek": seek, "mesh": mesh, "malformed": malformed,
-                    "card": card}))
+                    "bench": bench_row, "card": card}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": list(rows)}), flush=True)

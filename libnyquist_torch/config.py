@@ -14,6 +14,18 @@ modules that own them and gathered here.
 | CUDA_HOME, CUDA_PATH       | where nvcc is found for the kernel build
 |                            | (kernels/__init__.py; default
 |                            | /usr/local/cuda) |
+| LIBNYQUIST_BENCH_TRIALS    | the bench's headline trials (bench.py;
+|                            | default 10) |
+| LIBNYQUIST_BENCH_DEADLINE_S | the bench run's budget in s; timed loops
+|                            | take fewer trials near it (default 720;
+|                            | <= 0: none) |
+| LIBNYQUIST_BENCH_SPLIT     | 0: the bench skips its stage split |
+| LIBNYQUIST_BENCH_IMDCT     | 0: the bench skips its IMDCT frames/s
+|                            | micro |
+| LIBNYQUIST_BENCH_REFERENCE | a directory of the reference's test files
+|                            | (sb-reverie.opus, ad_hoc/...); the bench
+|                            | takes a file there in place of its
+|                            | in-repo stream (default none) |
 
 Flags of the JAX package with no counterpart here, and why:
 
@@ -43,6 +55,11 @@ FLAGS = {
     "LIBNYQUIST_FLAC_MD5": "flac_md5",
     "CUDA_HOME": "cuda_home",
     "CUDA_PATH": "cuda_home",
+    "LIBNYQUIST_BENCH_TRIALS": "bench_trials",
+    "LIBNYQUIST_BENCH_DEADLINE_S": "bench_deadline_s",
+    "LIBNYQUIST_BENCH_SPLIT": "bench_split",
+    "LIBNYQUIST_BENCH_IMDCT": "bench_imdct",
+    "LIBNYQUIST_BENCH_REFERENCE": "bench_reference",
 }
 
 
@@ -50,6 +67,11 @@ FLAGS = {
 class Config:
     flac_md5: bool
     cuda_home: str | None
+    bench_trials: int = 10
+    bench_deadline_s: float = 720.0
+    bench_split: bool = True
+    bench_imdct: bool = True
+    bench_reference: str | None = None
 
 
 def current() -> Config:
@@ -59,4 +81,9 @@ def current() -> Config:
     return Config(
         flac_md5=bool(e("LIBNYQUIST_FLAC_MD5")),
         cuda_home=e("CUDA_HOME") or e("CUDA_PATH") or None,
+        bench_trials=int(e("LIBNYQUIST_BENCH_TRIALS", "10")),
+        bench_deadline_s=float(e("LIBNYQUIST_BENCH_DEADLINE_S", "720")),
+        bench_split=e("LIBNYQUIST_BENCH_SPLIT", "1") != "0",
+        bench_imdct=e("LIBNYQUIST_BENCH_IMDCT", "1") != "0",
+        bench_reference=e("LIBNYQUIST_BENCH_REFERENCE") or None,
     )

@@ -21,6 +21,7 @@ processes, one device each (NCCL on CUDA, gloo on the CPU).
 from __future__ import annotations
 
 import pathlib
+import time
 
 import numpy as np
 import torch
@@ -242,11 +243,37 @@ def _local_step(mesh, spec, T0, T1, g0, g1, fade, Tm, Tpm, Tt, halos=None):
     return out[:, DEEMPH_HALO : DEEMPH_HALO + y.shape[1]] * SCALE
 
 
+def _step_ms(step, device, reps):
+    """Median ms of ``reps`` runs of step() after a warm-up run, timed in
+    this rank: CUDA events on a card, the host clock on the CPU."""
+    step()
+    times = []
+    for _ in range(reps):
+        if device.type == "cuda":
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            step()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        else:
+            t0 = time.perf_counter()
+            step()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
 def _decode_rank(device, cases):
     """Each case's sharded step on this rank (the rank worker of
     decode_cases): per case dict(coords, shape, out, halos, calls,
     comb_launches), arrays as numpy; comb_launches counts this rank's
-    K1 launches (none on the CPU)."""
+    K1 launches (none on the CPU), calls its collective calls of the one
+    step. A case with ``measure`` = r also gets this rank's cost of a
+    step (``flops`` of its products, ``bytes`` moved, by op_cost) and
+    ``step_ms``, the median of r more steps after a warm-up."""
+    from .utils.profiling import op_cost
+
     results = []
     for case in cases:
         mesh = make_mesh(device=device, serving=case["serving_mesh"])
@@ -254,18 +281,24 @@ def _decode_rank(device, cases):
         halos = []
         k0 = comb_ops.comb_filter_cuda.launches
         out = _local_step(mesh, *args, halos=halos)
-        results.append(dict(
+        res = dict(
             coords=mesh.coords, shape=mesh.shape, out=out.cpu().numpy(),
             halos=[h.cpu().numpy() for h in halos], calls=dict(mesh.calls),
-            comb_launches=comb_ops.comb_filter_cuda.launches - k0))
+            comb_launches=comb_ops.comb_filter_cuda.launches - k0)
+        if case.get("measure"):
+            cost = op_cost(_local_step, mesh, *args)
+            res.update(flops=cost.get("flops", 0.0), bytes=cost["bytes"],
+                       step_ms=_step_ms(lambda: _local_step(mesh, *args),
+                                        mesh.device, case["measure"]))
+        results.append(res)
     return results
 
 
 def decode_cases(n_devices: int, cases, device=None) -> list:
     """Run each case's sharded step once on an ``n_devices`` mesh, all
     cases in one set of ranks. A case is dict(rows, F, content,
-    serving_mesh). Returns, per case, each rank's dict (_decode_rank) in
-    rank order. One device runs in the calling
+    serving_mesh[, measure]). Returns, per case, each rank's dict
+    (_decode_rank) in rank order. One device runs in the calling
     process; more are spawned ranks (``run_ranks``)."""
     dev = resolve_device(device)
     cases = [{"rows": 8, "F": 16, "content": None, "serving_mesh": False,

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import importlib
 import os
-from typing import Optional, Union
+from typing import Callable, Dict, Optional, Union
 
 from .audio_data import AudioData, PCMFormat
 from .device import resolve_device
@@ -36,6 +36,11 @@ _DECODERS = {
     "wv": ("wavpack", "decode_wavpack_buffer"),
     "mpc": ("musepack", "decode_musepack_buffer"),
 }
+# A decoder is fn(data: bytes, audio: AudioData, device) that fills
+# ``audio`` (reference: BaseDecoder::LoadFromBuffer, Decoders.h:38-44).
+DecoderFn = Callable[[bytes, AudioData, object], None]
+# decoders added by register_decoder; load() looks here first
+_REGISTERED: Dict[str, DecoderFn] = {}
 # an explicit extension is taken at its word except these, which defer to
 # the container's first page
 _RESNIFF = ("ogg", "oga", "opus")
@@ -86,13 +91,29 @@ def parse_path_for_extension(path: str) -> str:
     return ext[1:].lower() if ext else ""
 
 
+def register_decoder(extensions, fn: DecoderFn) -> None:
+    """Register ``fn`` as the decoder of one extension or a list of them
+    (lowercased); it takes precedence over a built-in decoder of the same
+    extension. ``fn(data, audio, device)`` fills ``audio``: the port's
+    decoders take the device as a third argument, its one difference
+    from the JAX package's ``DecoderFn`` of ``(data, audio)``."""
+    if isinstance(extensions, str):
+        extensions = [extensions]
+    for ext in extensions:
+        _REGISTERED[ext.lower()] = fn
+
+
 def is_file_supported(path: str) -> bool:
     """Whether a decoder is registered for the path's extension."""
-    return parse_path_for_extension(path) in _DECODERS
+    ext = parse_path_for_extension(path)
+    return ext in _REGISTERED or ext in _DECODERS
 
 
 def _decoder(ext: str):
-    """The decoder registered for ``ext``, imported on first use."""
+    """The decoder registered for ``ext``; a built-in one is imported on
+    first use."""
+    if ext in _REGISTERED:
+        return _REGISTERED[ext]
     module, name = _DECODERS[ext]
     return getattr(importlib.import_module(f".formats.{module}", __package__),
                    name)
@@ -125,7 +146,8 @@ def load(
         sniffed = sniff_extension(data)
         if sniffed is not None and extension in _RESNIFF:
             extension = sniffed
-    if not extension or extension not in _DECODERS:
+    if not extension or not (extension in _REGISTERED
+                             or extension in _DECODERS):
         raise UnsupportedExtensionError(
             f"no decoder for extension {extension!r}")
     audio = AudioData()

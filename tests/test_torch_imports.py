@@ -39,7 +39,8 @@ def test_port_modules_import_without_jax():
                  "formats.opus.celt", "formats.opus.celt_encoder",
                  "formats.opus.silk_encoder", "formats.opus.hybrid_encoder",
                  "formats.opus.analysis", "streaming", "net", "cli",
-                 "parallel.mesh", "entry", "utils.profiling", "config"):
+                 "parallel.mesh", "entry", "utils.profiling", "config",
+                 "bench"):
         assert f"libnyquist_torch.{name}" in mods
     # Only what the port's imports add counts: an interpreter start-up hook
     # may load jax before any of them runs.

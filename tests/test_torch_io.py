@@ -100,3 +100,58 @@ def test_nyquist_io_and_exports():
         mine, theirs = getattr(nqt, name), getattr(nq, name)
         assert [c.__name__ for c in mine.__mro__] == [
             c.__name__ for c in theirs.__mro__]
+
+
+@pytest.fixture
+def restored_tables():
+    """Both packages' decoder tables as they were, after the test."""
+    import libnyquist_torch.io as tio
+    import libnyquist_tpu.io as jio
+
+    jio._ensure_registry()
+    saved = dict(tio._REGISTERED), dict(jio._DECODER_TABLE)
+    yield
+    for table, old in zip((tio._REGISTERED, jio._DECODER_TABLE), saved):
+        table.clear()
+        table.update(old)
+
+
+@pytest.mark.parametrize("pkg", ["torch", "jax"])
+def test_register_decoder(pkg, restored_tables):
+    """A decoder registered for a new extension (upper-case names
+    lowercased) is found by load() and is_file_supported, and one
+    registered for a built-in extension takes its place; the port's
+    decoder takes the device as a third argument."""
+    from libnyquist_torch.io import DecoderFn as TDecoderFn
+    from libnyquist_torch.io import register_decoder as treg
+    from libnyquist_tpu.io import DecoderFn as JDecoderFn
+    from libnyquist_tpu.io import register_decoder as jreg
+
+    assert TDecoderFn is not None and JDecoderFn is not None
+    calls = []
+
+    def fill(data, audio, *device):
+        calls.append((data, device))
+        audio.sample_rate, audio.channel_count = 8000, 1
+        audio.samples = np.zeros(4, np.float32)
+
+    if pkg == "torch":
+        mod, register = nqt, treg
+        load = lambda src, ext: nqt.load(src, extension=ext, device="cpu")
+    else:
+        mod, register = nq, jreg
+        load = lambda src, ext: nq.load(src, extension=ext)
+    assert not mod.is_file_supported("x.nqtest")
+    register(["NQTEST", "nqt2"], fill)
+    assert mod.is_file_supported("x.nqtest")
+    assert mod.is_file_supported("y.NQT2")
+    a = load(b"\1" * 32, "nqtest")
+    assert a.sample_rate == 8000 and a.sample_count == 4
+    assert a.length_seconds == pytest.approx(4 / 8000)
+    register("wav", fill)
+    load(b"RIFF" + b"\0" * 40, "wav")
+    assert [c[0][:4] for c in calls] == [b"\1" * 4, b"RIFF"]
+    if pkg == "torch":
+        assert [str(c[1][0]) for c in calls] == ["cpu", "cpu"]
+    else:
+        assert [c[1] for c in calls] == [(), ()]

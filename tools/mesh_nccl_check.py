@@ -3,6 +3,8 @@
 world 1 on card 0.
 
     python3 tools/mesh_nccl_check.py [--one-card] [--root DIR]
+    python3 tools/mesh_nccl_check.py --scaling [--dp-only] [--serving]
+        [--json] [--device cpu]
 
 Needs two or more CUDA cards on one machine (nvcc for K1, as
 chip_smoke.py), and uses the largest power of two of them, up to 8. For
@@ -19,6 +21,19 @@ raise. One JSON line a case (``bit_equal`` in each); the last line is
 
 ``--one-card`` needs one card and runs no collective: per shape,
 ``dp_slices``, ``other_layouts`` and world 1's step time.
+
+``--scaling`` prints the per-rank scaling table, the counterpart of the
+JAX package's tools/mesh_scaling.py: for worlds 1, 2, 4 and 8 (those the
+cards, or on the CPU the cores, allow), on the mixed mesh (factor_mesh)
+and the serving mesh (n, 1, 1) (``--dp-only``: that one alone), each
+rank's GFLOP (op_flops: its products) and GB (op_cost) of its step, its
+collective calls by kind and its step ms (CUDA events in the rank,
+median of 5 after a warm-up; the spawn and NCCL set-up excluded), at
+(rows, F) = (8, 16) of random spectra, or with ``--serving`` (16, 96)
+of the bench stream's content (libnyquist_torch.bench,
+entry.real_content_args). The serving mesh must make no collective call.
+``--json`` also prints the rows as one JSON line. ``--device cpu`` runs
+gloo ranks (step ms on the host clock).
 ``--root DIR`` imports libnyquist_torch from another checkout (a
 parent's, to compare on the same card).
 
@@ -38,9 +53,11 @@ raises.
 from __future__ import annotations
 
 import json
+import os
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -48,6 +65,12 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SHAPES = ((16, 16), (16, 512))
+SCALING = (8, 16)              # the JAX tool's ROWS, F
+# its --serving shape on real content: 16 rows x 96 frames, since the
+# bench stream's long-block runs are 99 frames (a transient opens each
+# repeat of golden case 0), where the JAX tool took 128 of sb-reverie
+SCALING_SERVING = (16, 96)
+SCALING_REPS = 5
 
 
 def ranks_for(cards: int) -> int:
@@ -186,12 +209,120 @@ def one_card(smi_line: str) -> int:
     return int(bad > 0)
 
 
+def bench_content(rows: int, F: int) -> dict:
+    """entry.real_content_args on the bench stream of
+    libnyquist_torch.bench (golden case 0 repeated to 100 s)."""
+    from libnyquist_torch import bench, entry
+
+    data, _ = bench._load_opus_stream_bytes()
+    with tempfile.TemporaryDirectory(prefix="nq_scaling_") as tmp:
+        path = pathlib.Path(tmp) / "bench.opus"
+        path.write_bytes(data)
+        content = entry.real_content_args(path, rows=rows, F=F)
+    if content is None:
+        raise RuntimeError(f"the bench stream has no {rows // 2} windows of "
+                           f"{F} long-block frames")
+    return content
+
+
+def scaling_rows(worlds, rows: int, F: int, content=None,
+                 meshes=("mixed", "serving"), device="cuda",
+                 reps: int = SCALING_REPS) -> list:
+    """The scaling table's rows: per world and mesh, each rank's GFLOP
+    and GB of its step, collective calls and step ms, and the output's
+    error against world 1 of the same mesh. All meshes of a world run in
+    one set of ranks (entry.decode_cases). Raises when the serving mesh
+    makes a collective call."""
+    from libnyquist_torch import entry
+
+    out, ref = [], {}
+    for n in worlds:
+        cases = [dict(rows=rows, F=F, content=content, measure=reps,
+                      serving_mesh=(m == "serving")) for m in meshes]
+        for m, res in zip(meshes, entry.decode_cases(n, cases, device)):
+            got = entry.assemble(res, rows, F)
+            ref.setdefault(m, got)
+            row = dict(
+                n=n, mesh=m, shape=list(res[0]["shape"]), rows=rows, F=F,
+                gflops_per_rank=[r["flops"] / 1e9 for r in res],
+                gb_per_rank=[r["bytes"] / 1e9 for r in res],
+                collectives=[r["calls"] for r in res],
+                step_ms=[r["step_ms"] for r in res],
+                k1_launches=[r["comb_launches"] for r in res],
+                err_vs_world1=float(np.abs(got - ref[m]).max()))
+            if m == "serving" and any(row["collectives"]):
+                raise RuntimeError(f"the serving mesh {row['shape']} made "
+                                   f"collective calls {row['collectives']}")
+            out.append(row)
+    return out
+
+
+def scaling_table(rows: list, label: str) -> str:
+    """The JAX tool's markdown table, one per mesh, with the device's
+    name in place of "virtual CPU" (the slowest rank's figures; --json
+    has every rank's)."""
+    lines = []
+    for mesh in dict.fromkeys(r["mesh"] for r in rows):
+        sel = [r for r in rows if r["mesh"] == mesh]
+        base = max(sel[0]["gflops_per_rank"])
+        lines += [f"fused CELT device step, rows={sel[0]['rows']} x "
+                  f"F={sel[0]['F']} frames (global shapes fixed), {mesh} "
+                  f"mesh:",
+                  "| devices | mesh (dp,sp,tp) | GFLOP/device | GB/device |"
+                  f" collectives | step ms ({label}) |",
+                  "|---|---|---|---|---|---|"]
+        for r in sel:
+            calls = {}
+            for c in r["collectives"]:
+                for k, v in c.items():
+                    calls[k] = max(calls.get(k, 0), v)
+            cl = ", ".join(f"{k} x{v}" for k, v in calls.items()) or "none"
+            g = max(r["gflops_per_rank"])
+            lines.append(
+                f"| {r['n']} | ({','.join(map(str, r['shape']))}) | {g:.3f} "
+                f"({base / g:.1f}x less) | {max(r['gb_per_rank']):.3f} | "
+                f"{cl} | {max(r['step_ms']):.3f} |")
+    return "\n".join(lines)
+
+
+def scaling_main(args) -> int:
+    """--scaling: the table for the worlds the devices allow."""
+    device = args[args.index("--device") + 1] if "--device" in args \
+        else "cuda"
+    if device == "cuda":
+        from libnyquist_torch import kernels
+
+        label = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip().splitlines()[0]
+        print(label, flush=True)
+        kernels.load("comb")      # built once here, not by every rank
+        have = torch.cuda.device_count()
+    else:
+        label, have = "CPU, gloo ranks", os.cpu_count() or 1
+    worlds = [n for n in (1, 2, 4, 8) if n <= have]
+    meshes = ("serving",) if "--dp-only" in args else ("mixed", "serving")
+    if "--serving" in args:
+        rows, F = SCALING_SERVING
+        content = bench_content(rows, F)
+    else:
+        (rows, F), content = SCALING, None
+    table = scaling_rows(worlds, rows, F, content, meshes, device)
+    print(scaling_table(table, label), flush=True)
+    if "--json" in args:
+        print(json.dumps([{**r, "device": label} for r in table]))
+    return 0
+
+
 def main() -> int:
     args = sys.argv[1:]
     # --root DIR: the libnyquist_torch of another checkout (a parent's)
     root = pathlib.Path(args[args.index("--root") + 1]).resolve() \
         if "--root" in args else ROOT
     sys.path.insert(0, str(root))
+    if "--scaling" in args:
+        return scaling_main(args)
     from libnyquist_torch import entry, kernels
 
     smi = subprocess.run(
