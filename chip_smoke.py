@@ -40,7 +40,10 @@ failure exits non-zero before the result line:
    1e-4;
 3. serving phase (the main path at full size): upload the replay
    arrays, then run_stream_batched (device replay of each stream, then
-   the synthesis step loop with f_chunk = 512: 22 steps of 16 rows).
+   the synthesis step loop with f_chunk = 512: 22 steps of 16 rows) by
+   its serving route: the first call (a first sighting) runs eagerly,
+   the second captures one CUDA graph, the counted run replays it; the
+   first two are timed as a cold batch by either route.
    K1 is also held against its plain version on this real data. Checks:
    each stream's first cycle against libopus (1e-4); the replayed
    spectra against the full native decode (max d/(1+|ref|) < 1e-3,
@@ -49,8 +52,10 @@ failure exits non-zero before the result line:
    against the single-stream unified path (1e-6). Reports host seconds
    of both host halves, device seconds, the replay / imdct / comb /
    deemph split with the replay's inner stages, the realtime factor,
-   and from one torch.profiler run the device busy share and the top
-   kernels;
+   and from one traced graph replay (utils.profiling.device_trace) the
+   device busy share, the top kernels and K1's and K2's records, which
+   must number one a step and one a stream, and their times as the
+   graph launches them;
 4. MP3 phase: K = 8 stereo Layer III streams of 3.7 min (about 17,000
    granules each) written by tools/l3_stream.py from distinct seeds; the
    host half (the native whole-stream entropy decode) timed on one core,
@@ -184,7 +189,20 @@ failure exits non-zero before the result line:
    of its line present and finite, K1 launched once a step and K2 once a
    stream in one batch; then tools/mesh_nccl_check.py's scaling row of
    world 1 on card 0 (both meshes at (8, 16): GFLOP and GB by op_cost,
-   step ms by CUDA events in the rank, no collective).
+   step ms by CUDA events in the rank, no collective);
+15. graph phase: the headline batch of phase 14 by the eager route and
+   by the captured one (runtime/graphs.py): captured on the batch,
+   replayed on a batch of the same static keys and new values (every
+   stream's PCM moves) and on the batch again, the PCM bit-equal to
+   eager each time; no hidden synchronisation in a captured batch; K1
+   once a step and K2 once a stream in a replay, by the wrappers' counts
+   and by the records of a traced replay (with their times); phase 14's
+   replay and program device times by route; K1 and K2 each captured
+   alone (K1 on step 1's inputs, K2 on stream 0's plane) and replayed on
+   other inputs (step 2's, another stream's plane), equal to their eager
+   launches and within 1e-5 of their plain versions; the key census of
+   16 batches of 8 segments of 10 s of the golden CELT cases: the share
+   of batches that repeat a program key.
 Phases 4 to 6 print host seconds and host audio-seconds per second,
 device seconds and the device realtime factor, and the bounds reckoned
 from the shapes (float ops at the card's float32 peak outside the tensor
@@ -891,40 +909,75 @@ def phase2_load(nqt, comb, dev):
     log(f"  comb kernel launches in the load phase: {grew}")
 
 
+GRAPH_KERNELS = {"comb_filter": "comb_kernel", "rotate_plane": "rot_rows_kernel"}
+
+
 def profile_main_path(fn, card):
-    """torch.profiler over one run of fn: device time summed over kernels
-    (self time, so nothing counts twice), the busy share of the traced
-    wall time, and the five kernels with the most device time. Reports
-    None where the profiler saw no device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """One run of fn under utils.profiling.device_trace (its warm-up
+    takes the records a session loses at its start): the device busy
+    time (the union of the kernel, copy and set intervals), its share of
+    the traced wall time, the five kernels with the most device time, and
+    per hand-written kernel the records the trace holds and their mean
+    duration (from a graph replay, the kernels as the graph launches
+    them). Reports None where the trace saw no device time."""
+    import shutil
+    import tempfile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    from libnyquist_torch.utils import profiling
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
-    # device-side events only (kernels, copies): the CPU ops that launch
-    # them report the same time again as their own device time
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
-    busy_s = sum(dev_us(e) for e in events) / 1e6
-    if not events:
-        log("  traced run: the profiler saw no device time (not measured)")
+    tmp = tempfile.mkdtemp(prefix="nq_smoke_trace_")
+    try:
+        with profiling.device_trace(tmp):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        (f,) = pathlib.Path(tmp).glob("trace_*.json")
+        events = json.loads(f.read_text()).get("traceEvents", [])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    dev_ev = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    warm = sum(1 for e in dev_ev if "spin" in e.get("name", ""))
+    check(warm > 0, "the trace lost every warm-up kernel: it may have lost "
+          "the run's own")
+    dev_ev = [e for e in dev_ev if "spin" not in e.get("name", "")]
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                   for e in dev_ev)
+    busy_us, end = 0.0, -math.inf
+    for lo, hi in spans:
+        if hi > end:
+            busy_us += hi - max(lo, end)
+            end = hi
+    kernels = {}
+    for name, prefix in GRAPH_KERNELS.items():
+        durs = [float(e.get("dur", 0)) for e in dev_ev
+                if e.get("cat") == "kernel"
+                and e.get("name", "").startswith(prefix)]
+        kernels[name] = {"records": len(durs),
+                         "mean_ms": (sum(durs) / len(durs) / 1e3
+                                     if durs else None)}
+    if not spans:
+        log("  traced run: the trace saw no device time (not measured)")
         return {"traced_wall_s": wall, "traced_busy_s": None,
-                "traced_idle_share": None}
-    top = sorted(events, key=dev_us, reverse=True)[:5]
+                "traced_idle_share": None, "traced_kernels": kernels}
+    busy_s = busy_us / 1e6
+    by_name = {}
+    for e in dev_ev:
+        n = e.get("name", "")[:60]
+        t, c = by_name.get(n, (0.0, 0))
+        by_name[n] = (t + float(e.get("dur", 0)), c + 1)
+    top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:5]
     log(f"  traced run: wall {wall:.3f} s, device busy {busy_s:.3f} s, idle "
-        f"share {1 - busy_s / wall:.3f} on {card}; top kernels: " + "; ".join(
-            f"{e.key[:60]} {dev_us(e) / 1e3:.1f} ms x{e.count}" for e in top))
+        f"share {1 - busy_s / wall:.3f} ({profiling.WARMUP_KERNELS - warm} "
+        f"warm-up records lost) on {card}; top kernels: " + "; ".join(
+            f"{n} {t / 1e3:.1f} ms x{c}" for n, (t, c) in top))
+    log("  hand-written kernels in the trace: " + "; ".join(
+        f"{n} {v['records']} records, {v['mean_ms']} ms each"
+        for n, v in kernels.items()))
     return {"traced_wall_s": wall, "traced_busy_s": busy_s,
-            "traced_idle_share": 1 - busy_s / wall}
+            "traced_idle_share": 1 - busy_s / wall,
+            "traced_kernels": kernels}
 
 
 def replay_stage_split(streams_dev):
@@ -1004,6 +1057,26 @@ def phase3_serving(comb, rot, serving, dev, rows, card, traces, decodes,
     compare_comb(comb, real_args, f"serving shape B={R} real decode data")
     del real_args, raw1
 
+    # the serving route ("auto" on a card) runs a batch's first sighting
+    # eagerly and captures its second (an eager warm-up, then the
+    # capture); the counted run replays the graph. The first two calls
+    # are what a batch of distinct streams costs cold by each route.
+    serving.clear_programs()
+    serving.route_counts.clear()
+    cold = {}
+    for how in ("eager", "captured"):
+        t0 = time.perf_counter()
+        serving.run_stream_batched(streams_dev, synth, K, CC, n_steps,
+                                   F_CHUNK)
+        torch.cuda.synchronize()
+        cold[how] = time.perf_counter() - t0
+        check(serving.route_counts[how] == 1,
+              f"the serving route went {dict(serving.route_counts)}, "
+              f"expected one {how} call")
+    capture_s = cold["captured"]
+    log(f"  a cold batch of {len(keys)} structure keys: first sighting "
+        f"eager {cold['eager']:.3f} s, second captured {capture_s:.3f} s "
+        f"(warm-up, capture and one replay), wall clock")
     # the main path: counts to 0 just before, read just after
     comb.comb_filter_cuda.launches = 0
     rot.rotate_plane_cuda.launches = 0
@@ -1021,6 +1094,8 @@ def phase3_serving(comb, rot, serving, dev, rows, card, traces, decodes,
     launches = {"comb_filter": comb.comb_filter_cuda.launches,
                 "rotate_plane": rot.rotate_plane_cuda.launches}
     expected = {"comb_filter": n_steps, "rotate_plane": K}
+    check(serving.route_counts["replayed"] == 1,
+          f"the counted run was no graph replay: {dict(serving.route_counts)}")
     for row in rows:
         check(launches[row["name"]] == expected[row["name"]],
               f"the main path launched the {row['name']} kernel "
@@ -1089,10 +1164,22 @@ def phase3_serving(comb, rot, serving, dev, rows, card, traces, decodes,
         f"{host['host_trace_s']:.2f}, full decode "
         f"{host['host_decode_s']:.2f}; device seconds of the main path "
         f"{dev_s:.3f}")
-    # one traced run of the main path: device busy time by kernel name
+    # one traced run of the main path (a graph replay): device busy time
+    # by kernel name, and the hand-written kernels' records, counted
+    # apart from the wrappers' counts and timed as the graph launches them
     trace = profile_main_path(
         lambda: serving.run_stream_batched(streams_dev, synth, K, CC,
                                            n_steps, F_CHUNK), card)
+    check(serving.route_counts["replayed"] == 2,
+          f"the traced run was no graph replay: {dict(serving.route_counts)}")
+    for row in rows:
+        got = trace["traced_kernels"][row["name"]]
+        check(got["records"] == expected[row["name"]],
+              f"the traced graph replay holds {got['records']} "
+              f"{row['name']} kernel records, expected "
+              f"{expected[row['name']]}")
+        row["graph_ms"] = got["mean_ms"]
+        row["graph_records"] = got["records"]
     # every stream against the single-stream unified path on the card
     worst = 0.0
     for k, (freq, sb, pfp, pfg, pft) in enumerate(decodes):
@@ -1103,8 +1190,10 @@ def phase3_serving(comb, rot, serving, dev, rows, card, traces, decodes,
     log(f"  batched vs single-stream: max|d| {worst:.3e}")
     check(worst < 1e-6, f"batched vs single max err {worst}")
 
+    serving.clear_programs()
     return {"K": K, "frames": F, "audio_s": audio_s, **host,
             "upload_s": upload_s, "structure_keys": len(keys),
+            "cold_eager_s": cold["eager"], "capture_s": capture_s,
             "device_s": dev_s, "wall_s": wall_s,
             "realtime_x": audio_s / dev_s,
             "realtime_x_full_median": audio_s / (split["full_ms"] / 1e3),
@@ -3357,6 +3446,8 @@ def phase13_malformed(nqt, card, dev):
 # ----------------------------------------------------------------------
 BENCH_STREAMS = 8
 BENCH_TRIALS = 3
+ROUTE_FIELDS = ("replay_s_graph", "replay_s_eager", "full_s_graph",
+                "full_s_eager")
 BENCH_FIELDS = ("host_s", "dev_s", "serial_s", "pipelined_s", "gil_gap_pct",
                 "staging_s", "device_gflops", "device_gbytes", "mfu_pct",
                 "hbm_util_pct", "device_busy_pct", "libopus_err",
@@ -3369,8 +3460,8 @@ def finite(v) -> bool:
 
 def phase14_bench(card, dev):
     """libnyquist_torch.bench's headline at K = 8 with 3 trials and its
-    stage split, in this process; then the scaling table's world-1 row on
-    card 0."""
+    stage split by either route, in this process; then the scaling
+    table's world-1 row on card 0."""
     from libnyquist_torch import bench
     from libnyquist_torch.utils import profiling
 
@@ -3381,18 +3472,23 @@ def phase14_bench(card, dev):
     check(prep is not None, "the bench stream must take the trace path")
     head = bench.bench_e2e_opus_iy(BENCH_STREAMS, dev, prep=prep,
                                    trials=BENCH_TRIALS)
-    split = bench._opus_stage_split(BENCH_STREAMS, dev, prep=prep)
-    head["config"]["stage_split"] = split
+    splits, side = bench.route_splits(BENCH_STREAMS, dev, prep)
+    head["config"].update(stage_split=splits["graph"],
+                          stage_split_eager=splits["eager"], **side)
     cfg = head["config"]
     check(head["metric"] == "opus_e2e_decode_realtime_x"
           and finite(head["value"]) and head["value"] > 0,
           f"bench headline {head['metric']} = {head['value']}")
     for key in BENCH_FIELDS:
         check(finite(cfg.get(key)), f"bench config {key} = {cfg.get(key)}")
-    for key, v in split.items():
-        check(finite(v), f"bench stage split {key} = {v}")
+    for route, split in splits.items():
+        for key, v in split.items():
+            check(finite(v), f"bench stage split ({route}) {key} = {v}")
     check(isinstance(cfg["hidden_syncs_per_batch"], int),
           f"bench hidden syncs {cfg['hidden_syncs_per_batch']}")
+    check(cfg["route"] == "graph", f"bench route {cfg['route']}")
+    for key in ROUTE_FIELDS:
+        check(finite(cfg.get(key)), f"bench config {key} = {cfg.get(key)}")
     check(cfg["trace_warmup_lost"] < profiling.WARMUP_KERNELS,
           "the bench's trace lost its whole warm-up")
     check(cfg["k1_per_batch"] == prep["n_steps"]
@@ -3415,7 +3511,245 @@ def phase14_bench(card, dev):
     phase_s = time.perf_counter() - t_phase
     log(f"  phase 14 took {phase_s:.1f} s; pipelined x{head['value']} on "
         f"{card}")
+    from libnyquist_torch.runtime import serving
+    serving.clear_programs()
     return {"headline": head, "scaling": scaling, "phase_s": phase_s}
+
+
+# ----------------------------------------------------------------------
+# phase 15: the headline batch eager and as one captured CUDA graph
+# ----------------------------------------------------------------------
+REPEAT_BATCHES = 16               # the key census's batches of K_STREAMS
+REPEAT_FRAMES = 500               # 10 s segments
+
+
+def kept_kernel_inputs(comb, rot, run, n_comb, n_rot):
+    """run() with the K1 and K2 dispatchers wrapped to keep copies of the
+    arguments of K1's first n_comb launches and K2's first n_rot: the
+    kernels' inputs at the main path's shapes. Returns (run(), K1's,
+    K2's)."""
+    kept = {"comb": [], "rot": []}
+    orig = comb.comb_filter, rot.rotate_plane
+
+    def keep(name, fn, n):
+        def wrapped(*args):
+            if len(kept[name]) < n:
+                kept[name].append([a.clone() if torch.is_tensor(a) else a
+                                   for a in args])
+            return fn(*args)
+        return wrapped
+
+    comb.comb_filter = keep("comb", orig[0], n_comb)
+    rot.rotate_plane = keep("rot", orig[1], n_rot)
+    try:
+        out = run()
+    finally:
+        comb.comb_filter, rot.rotate_plane = orig
+    check(len(kept["comb"]) == n_comb and len(kept["rot"]) == n_rot,
+          f"the eager route launched K1 {len(kept['comb'])} times and K2 "
+          f"{len(kept['rot'])}, fewer than kept")
+    return out, kept["comb"], kept["rot"]
+
+
+def kernel_in_graph(name, wrapper, plain, args_a, args_b):
+    """One kernel captured alone into a CUDA graph on the main path's
+    inputs ``args_a`` and replayed on ``args_b`` (other inputs of the
+    same shapes): the replay's outputs equal the eager launch's on
+    ``args_b`` bit for bit, lie within 1e-5 of max|ref| of its plain
+    version's and differ from the capture's own."""
+    from libnyquist_torch.runtime import graphs
+
+    check(any(torch.is_tensor(a) and not torch.equal(a, b)
+              for a, b in zip(args_a, args_b)),
+          f"{name}: the replay's inputs equal the capture's")
+    prog = graphs.CapturedProgram(wrapper, *args_a)
+    tup = (lambda v: v if isinstance(v, tuple) else (v,))
+    at_a = [t.clone() for t in tup(prog(*args_a))]
+    got = tup(prog(*args_b))
+    eager, ref = tup(wrapper(*args_b)), tup(plain(*args_b))
+    torch.cuda.synchronize()
+    check(all(torch.equal(g, e) for g, e in zip(got, eager)),
+          f"{name} replayed on new inputs differs from its eager launch")
+    check(not all(torch.equal(g, a) for g, a in zip(got, at_a)),
+          f"{name} replayed on new inputs gave the capture's outputs")
+    errs = [rel_err(g, r) for g, r in zip(got, ref)]
+    ae, re = max(e[0] for e in errs), max(e[1] for e in errs)
+    check(re <= 1e-5, f"{name} in a graph against its plain version: rel "
+          f"err {re:.3e}")
+    log(f"  {name} captured alone, replayed on other inputs: max|d| "
+        f"{ae:.3e} ({re:.3e} of max|ref|) against its plain version, equal "
+        f"to its eager launch")
+    return ae
+
+
+def other_batch(streams, synth, K):
+    """The batch with new values under the same static keys: stream k's
+    band gains scaled by 1 - 0.03 (k + 1) and its rotation angles by
+    1 - 0.02 (k + 1), the postfilter gains halved."""
+    out = []
+    for k, (arrs, key) in enumerate(streams):
+        arrs = dict(arrs)
+        arrs["gains"] = arrs["gains"] * (1 - 0.03 * (k + 1))
+        arrs["rot_th"] = arrs["rot_th"] * (1 - 0.02 * (k + 1))
+        out.append((arrs, key))
+    synth = dict(synth, gA=synth["gA"] * 0.5, gB1=synth["gB1"] * 0.5)
+    return out, synth
+
+
+def key_census(seed=0):
+    """The program keys of a traffic of distinct content: REPEAT_BATCHES
+    batches of K_STREAMS streams, each a REPEAT_FRAMES-frame segment of a
+    SERVE_CASES case (drawn at random, cycled from a random packet). A
+    batch's program key is its streams' static keys in order (the
+    segment length fixes the rest). Returns the share of batches whose
+    key an earlier one had (as drawn, and with each batch's streams
+    sorted by key, as a batcher could order them), of streams whose key
+    an earlier one had, and the distinct stream keys."""
+    from libnyquist_torch.formats.opus import trace_celt_packets
+
+    rng = np.random.default_rng(seed)
+    cases = {i: read_case(i)[:2] for i in SERVE_CASES}
+    seen_b, seen_sorted, seen_s = set(), set(), set()
+    rep_b = rep_sorted = rep_s = 0
+    for _ in range(REPEAT_BATCHES):
+        keys = []
+        for _ in range(K_STREAMS):
+            ch, pkts = cases[SERVE_CASES[rng.integers(len(SERVE_CASES))]]
+            o = int(rng.integers(len(pkts)))
+            cyc = [pkts[(o + j) % len(pkts)] for j in range(REPEAT_FRAMES)]
+            key = trace_celt_packets(cyc, ch)[2]
+            rep_s += key in seen_s
+            seen_s.add(key)
+            keys.append(key)
+        rep_b += tuple(keys) in seen_b
+        seen_b.add(tuple(keys))
+        ordered = tuple(sorted(keys, key=repr))
+        rep_sorted += ordered in seen_sorted
+        seen_sorted.add(ordered)
+    return {"batches": REPEAT_BATCHES, "streams": REPEAT_BATCHES * K_STREAMS,
+            "batch_repeat_share": rep_b / REPEAT_BATCHES,
+            "sorted_batch_repeat_share": rep_sorted / REPEAT_BATCHES,
+            "stream_repeat_share": rep_s / (REPEAT_BATCHES * K_STREAMS),
+            "distinct_stream_keys": len(seen_s)}
+
+
+def phase15_graph(comb, rot, card, dev, rows, bench_row):
+    """The headline batch (8 streams of the bench stream) by the eager
+    route and by the captured one: captured on the batch, replayed on
+    another batch of the same static keys (other_batch) and on the batch
+    again, bit-equal to eager on each; no hidden synchronisation in a
+    captured batch; the launches a replay holds by the wrappers' counts
+    and by a trace; K1 and K2 captured alone and replayed on other
+    inputs against their plain versions; phase 14's device times by
+    route; the key census of a traffic of distinct content."""
+    from libnyquist_torch import bench
+    from libnyquist_torch.runtime import serving
+
+    t_phase = time.perf_counter()
+    log(f"phase 15: the headline batch (K={BENCH_STREAMS}) eager and as "
+        f"one captured CUDA graph")
+    prep = bench._prep_opus_device_batch(BENCH_STREAMS, dev)
+    check(prep is not None, "the bench stream must take the trace path")
+    K, n_steps = prep["K"], prep["n_steps"]
+    batch_a = (prep["streams"], prep["synth"])
+    batch_b = other_batch(*batch_a, K)
+
+    def run(batch, route):
+        return serving.run_stream_batched(
+            batch[0], batch[1], K, prep["CC"], n_steps, prep["f_chunk"],
+            route=route)
+
+    (acc_a, pcm_a), comb_args, rot_a = kept_kernel_inputs(
+        comb, rot, lambda: run(batch_a, "eager"), 3, 1)
+    (acc_b, pcm_b), _, rot_b = kept_kernel_inputs(
+        comb, rot, lambda: run(batch_b, "eager"), 0, 2)
+    serving.clear_programs()
+    t0 = time.perf_counter()
+    acc_c, pcm_c = run(batch_a, "graph")
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    comb.comb_filter_cuda.launches = 0
+    rot.rotate_plane_cuda.launches = 0
+    acc_g, pcm_g = run(batch_b, "graph")
+    torch.cuda.synchronize()
+    launches = {"comb_filter": comb.comb_filter_cuda.launches,
+                "rotate_plane": rot.rotate_plane_cuda.launches}
+    check(launches == {"comb_filter": n_steps, "rotate_plane": K},
+          f"a captured batch launched {launches}, expected K1 {n_steps} "
+          f"and K2 {K}")
+    check(len(serving._PROGRAMS) == 1, "batch B was captured anew: its "
+          "program key differs from batch A's")
+    acc_a2, pcm_a2 = run(batch_a, "graph")
+    same = all(torch.equal(x, y) for x, y in (
+        (pcm_a, pcm_c), (acc_a, acc_c), (pcm_b, pcm_g), (acc_b, acc_g),
+        (pcm_a, pcm_a2), (acc_a, acc_a2)))
+    d = (pcm_g - pcm_b).abs().max().item()
+    check(same, f"captured PCM differs from eager (batch B: max|d| "
+          f"{d:.3e})")
+    moved = [not torch.equal(pcm_g[k::K], pcm_a[k::K]) for k in range(K)]
+    check(all(moved), f"a replay on batch B gave batch A's PCM for streams "
+          f"{[k for k in range(K) if not moved[k]]}")
+    check(not torch.equal(pcm_g[1::K], pcm_g[0::K]),
+          "batch B's streams 0 and 1 are equal")
+    check(bool(torch.isfinite(pcm_g).all()), "non-finite captured PCM")
+    log(f"  captured on batch A in {capture_s:.3f} s; replayed on batch B "
+        f"(same keys, new values: every stream's PCM moved), then on A: "
+        f"PCM {tuple(pcm_g.shape)} bit-equal to eager each time; a replay "
+        f"launches {launches}")
+    del pcm_a, pcm_b, pcm_c, pcm_g, pcm_a2
+    trace = profile_main_path(lambda: run(batch_a, "graph"), card)
+    expected = {"comb_filter": n_steps, "rotate_plane": K}
+    for name, n in expected.items():
+        got = trace["traced_kernels"][name]["records"]
+        check(got == n, f"the traced replay holds {got} {name} kernel "
+              f"records, expected {n}")
+    syncs, sites = bench._hidden_syncs(lambda: run(batch_a, "graph"))
+    eager_syncs, eager_sites = bench._hidden_syncs(
+        lambda: run(batch_a, "eager"))
+    log(f"  hidden syncs a batch: captured {syncs} {sites}, eager "
+        f"{eager_syncs} {eager_sites}")
+    check(syncs == 0, f"the captured batch made {syncs} hidden syncs: "
+          f"{sites}")
+    cfg = bench_row["headline"]["config"]
+    log(f"  replay device s (phase 14's split, median of "
+        f"{bench.SPLIT_ROUNDS}): eager {cfg['replay_s_eager']:.4f}, captured "
+        f"{cfg['replay_s_graph']:.4f}; whole program: eager "
+        f"{cfg['full_s_eager']:.4f}, captured {cfg['full_s_graph']:.4f} on "
+        f"{card}")
+    k1_err = kernel_in_graph("K1", comb.comb_filter_cuda,
+                             comb.comb_filter_stream_ref, comb_args[1],
+                             comb_args[2])
+
+    def rot_plain(x, pk, th, g, sigmas, band_off):
+        W = pk.shape[1]
+        y = rot.rotate_plane_ref(*(t.t().contiguous() for t in
+                                   (x[:, :W], pk, th, g)), sigmas, band_off)
+        return torch.cat([y.t(), x[:, W:]], dim=1)
+
+    k2_err = kernel_in_graph("K2", rot.rotate_plane_cuda, rot_plain,
+                             rot_a[0], rot_b[1])
+    serving.clear_programs()
+    census = key_census()
+    log(f"  key census of distinct content ({census['batches']} batches of "
+        f"{K_STREAMS} segments of {REPEAT_FRAMES} frames): batches that "
+        f"repeat a program key {census['batch_repeat_share']:.3f} (sorted "
+        f"by key {census['sorted_batch_repeat_share']:.3f}), streams "
+        f"that repeat a static key {census['stream_repeat_share']:.3f}, "
+        f"{census['distinct_stream_keys']} distinct stream keys")
+    for row in rows:
+        k1 = row["name"] == "comb_filter"
+        row["graph_max_abs_err"] = k1_err if k1 else k2_err
+        row["launches_per_captured_batch"] = launches[row["name"]]
+        row["graph_ms_headline"] = trace["traced_kernels"][row["name"]][
+            "mean_ms"]
+    phase_s = time.perf_counter() - t_phase
+    log(f"  phase 15 took {phase_s:.1f} s")
+    return {"capture_s": capture_s, "launches_per_captured_batch": launches,
+            "hidden_syncs_captured": syncs, "hidden_syncs_eager": eager_syncs,
+            "traced_kernels": trace["traced_kernels"],
+            "traced_busy_s": trace["traced_busy_s"],
+            "traced_wall_s": trace["traced_wall_s"], "key_census": census,
+            "phase_s": phase_s}
 
 
 def main() -> int:
@@ -3467,6 +3801,7 @@ def main() -> int:
     malformed = phase13_malformed(nqt, card, dev)
     torch.cuda.empty_cache()
     bench_row = phase14_bench(card, dev)
+    graph_row = phase15_graph(comb, rot, card, dev, rows, bench_row)
     for row in rows:
         if row["name"] == "comb_filter":
             row["launches_opus_general"] = general["k1_launches"]
@@ -3478,7 +3813,8 @@ def main() -> int:
                     "vorbis": vorbis, "pcm": pcm_rows, "lossless": lossless,
                     "opus_general": general, "encode": encode,
                     "seek": seek, "mesh": mesh, "malformed": malformed,
-                    "bench": bench_row, "card": card}))
+                    "bench": bench_row, "graph": graph_row,
+                    "card": card}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": list(rows)}), flush=True)

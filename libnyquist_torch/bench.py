@@ -14,8 +14,10 @@ one card), is multi-stream Ogg Opus (CELT) decode end to end:
   device half -- ``runtime.serving.run_stream_batched`` over the K-stream
                  batch: the value-plane replay (K2, csrc/rot.cu, once a
                  stream) and the synthesis steps (K1, csrc/comb.cu, once
-                 a step); trimmed median of up to LIBNYQUIST_BENCH_TRIALS
-                 runs, by CUDA events;
+                 a step), on a card by the captured route (the batch
+                 served again: one CUDA graph captured before the timed
+                 runs, runtime/graphs.py); trimmed median of up to
+                 LIBNYQUIST_BENCH_TRIALS runs, by CUDA events;
   serial      -- K * audio / (host + device);
   pipelined   -- the headline: device batch k dispatched from its own thread
                  while the host traces batch k+1, then a synchronize,
@@ -33,12 +35,15 @@ Every run checks each stream's first 100 packets against golden case 0's
 libopus PCM (1e-4 of max(|ref|, 1)), every stream of the batch against
 stream 0 (1e-6) and K1 and K2 against their plain versions (1e-5); a
 failed check, build or launch exits non-zero. Staging (the uploads) is
-timed and reported apart. ``config`` also holds the stage split, MFU and
-HBM utilisation from ``utils.profiling.op_cost`` of one batch, the
-device's busy share of one traced pipelined iteration
-(``utils.profiling.device_trace``, with its warm-up loss), the hidden
-synchronisations of one batch (``torch.cuda.set_sync_debug_mode``), the
-card's name and power limit and the host's workers.
+timed and reported apart. ``config`` also holds the stage split by
+either route (``route_splits``: the replay's and the whole program's
+device seconds side by side), MFU and HBM utilisation from
+``utils.profiling.op_cost`` of one batch (its eager route, whose aten ops
+the graph replays), the device's busy share of one traced pipelined
+iteration (``utils.profiling.device_trace``, with its warm-up loss), the
+hidden synchronisations of one batch by either route
+(``torch.cuda.set_sync_debug_mode``), the card's name and power limit
+and the host's workers.
 
 Without a flag the headline JSON line is printed first, then one line
 per codec on stderr, prefixed "# ": MP3, Vorbis and Musepack end to end
@@ -460,6 +465,12 @@ def _program(prep, **flags):
         prep["n_steps"], prep["f_chunk"], **flags)
 
 
+def _route(dev):
+    """The route the bench reads: the captured one on a card (a batch
+    served again), the eager one on the CPU."""
+    return "graph" if dev.type == "cuda" else "eager"
+
+
 def _hidden_syncs(run):
     """Synchronisations one batch makes that its caller did not ask for
     (``torch.cuda.set_sync_debug_mode("warn")``): (count, the five sites
@@ -471,7 +482,10 @@ def _hidden_syncs(run):
             run()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    # (set_sync_debug_mode's own first call warns that the mode is a
+    # prototype: that warning is no synchronisation)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)
+             and "prototype" not in str(w.message)]
     sites = collections.Counter(
         f"{pathlib.Path(w.filename).name}:{w.lineno}" for w in syncs)
     return len(syncs), dict(sites.most_common(5))
@@ -524,9 +538,14 @@ def bench_e2e_opus_iy(K, device=None, prep=None, trials=None, reps=REPS,
     n_trials = trials or config.current().bench_trials
     data, src, audio_s = prep["data"], prep["src"], prep["audio_s"]
     CC, n_steps = prep["CC"], prep["n_steps"]
-    run = _program(prep)
+    run = _program(prep, route=_route(dev))
+    eager = _program(prep, route="eager")
     card = _card_line(dev)
 
+    if dev.type == "cuda":
+        _note(f"capture (K={K})")
+        run()
+        _sync(dev)
     _note(f"warm batch (K={K})")
     k1, k2 = comb.comb_filter_cuda.launches, rot.rotate_plane_cuda.launches
     acc, pcm = run()
@@ -538,10 +557,15 @@ def bench_e2e_opus_iy(K, device=None, prep=None, trials=None, reps=REPS,
     parity = {"k1": _comb_parity_check(dev), "k2": _rot_parity_check(dev)}
     # the device-only figures: on the CPU the plain versions' per-op
     # counts would say nothing of a card (and take minutes to count)
-    syncs, sync_sites, cost = None, None, {}
+    syncs, sync_sites, eager_syncs, cost = None, None, None, {}
     if dev.type == "cuda":
         syncs, sync_sites = _hidden_syncs(run)
-        cost = profiling.op_cost(run)
+        eager_syncs, eager_sites = _hidden_syncs(eager)
+        print(f"# hidden syncs a batch: captured route {syncs} "
+              f"{sync_sites}, eager route {eager_syncs} {eager_sites}",
+              file=sys.stderr)
+        # the eager route runs the aten ops the graph replays
+        cost = profiling.op_cost(eager)
         _sync(dev)
 
     passes = sorted(_timed_host_pass_iy(data, K) for _ in range(3))
@@ -638,7 +662,9 @@ def bench_e2e_opus_iy(K, device=None, prep=None, trials=None, reps=REPS,
             "device_gbytes": nbytes / 1e9 if nbytes else None,
             "mfu_pct": mfu, "hbm_util_pct": hbm,
             "device_busy_pct": busy_pct, "trace_warmup_lost": warm_lost,
+            "route": _route(dev),
             "hidden_syncs_per_batch": syncs, "hidden_sync_sites": sync_sites,
+            "hidden_syncs_eager": eager_syncs,
             "imdct_frames_per_sec": imdct_fps,
             "dev_trials_s": dev_samples, "dev_spread_pct": 100 * dev_spread,
             "pipe_trials_s": pipe_samples,
@@ -776,21 +802,24 @@ def bench_synth_legacy(device=None, B=64):
 SPLIT_ROUNDS = 5
 
 
-def _opus_stage_split(K, device=None, prep=None, reps=REPS, f_chunk=None):
+def _opus_stage_split(K, device=None, prep=None, reps=REPS, f_chunk=None,
+                      route=None):
     """The device program's cost by stage at batch K: cumulative variants
     of run_stream_batched (replay only, + IMDCT products, + K1, + the
-    deemphasis), each timed by CUDA events, median of SPLIT_ROUNDS
-    rounds that run every variant in turn after a warm run (so a drift
-    of the host, which dispatches the replay, reaches every variant alike).
-    Returns the split in seconds; ``noise_s``, the widest interquartile
-    range of a variant's rounds, bounds the stage differences it can
-    resolve."""
+    deemphasis) by ``route`` (default: the bench's, ``_route``), each
+    timed by CUDA events, median of SPLIT_ROUNDS rounds that run every
+    variant in turn after a warm run (which captures a graph route's
+    variants; a drift of the host, which dispatches the replay, reaches
+    every variant alike). Returns the split in seconds; ``noise_s``, the
+    widest interquartile range of a variant's rounds, bounds the stage
+    differences it can resolve."""
     dev = resolve_device(device)
     if prep is None:
         prep = _prep_opus_device_batch(K, dev, reps, f_chunk)
         if prep is None:
             return None
-    runs = {name: _program(prep, **flags) for name, flags in (
+    route = route or _route(dev)
+    runs = {name: _program(prep, route=route, **flags) for name, flags in (
         ("replay", dict(with_synth=False)),
         ("imdct", dict(with_comb=False, with_deemph=False)),
         ("comb", dict(with_deemph=False)),
@@ -809,9 +838,24 @@ def _opus_stage_split(K, device=None, prep=None, reps=REPS, f_chunk=None):
              "comb_s": max(cum["comb"] - cum["imdct"], 0.0),
              "deemph_s": max(cum["full"] - cum["comb"], 0.0),
              "full_s": cum["full"], "noise_s": noise}
-    print(f"# device stage split (streams={K}): {json.dumps(split)}",
-          file=sys.stderr)
+    print(f"# device stage split (streams={K}, {route} route): "
+          f"{json.dumps(split)}", file=sys.stderr)
     return split
+
+
+def route_splits(K, dev, prep):
+    """The stage split by each route the device has (the captured and the
+    eager one on a card, the eager one on the CPU) and, side by side, the
+    replay's and the whole program's device seconds by route
+    (``replay_s_graph``, ``replay_s_eager``, ``full_s_*``)."""
+    routes = ("graph", "eager") if dev.type == "cuda" else ("eager",)
+    splits = {r: _opus_stage_split(K, dev, prep=prep, route=r)
+              for r in routes}
+    side = {f"{part}_s_{r}": split[f"{part}_s"]
+            for r, split in splits.items() for part in ("replay", "full")}
+    print(f"# device seconds by route (streams={K}, median of "
+          f"{SPLIT_ROUNDS}): {json.dumps(side)}", file=sys.stderr)
+    return splits, side
 
 
 def _opus_with_escalation(K, use_iy, device=None, breakdown=False):
@@ -846,8 +890,10 @@ def _opus_with_escalation(K, use_iy, device=None, breakdown=False):
                      and _deadline_remaining() > 60):
         if prep["K"] != K:
             prep = _prep_opus_device_batch(K, dev)
-        result["config"]["stage_split"] = _opus_stage_split(K, dev,
-                                                            prep=prep)
+        splits, side = route_splits(K, dev, prep)
+        result["config"]["stage_split"] = splits[_route(dev)]
+        result["config"]["stage_split_eager"] = splits["eager"]
+        result["config"].update(side)
     return result
 
 

@@ -10,12 +10,15 @@ as integers. Nothing is built when the package is imported.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import pathlib
 import shutil
 import subprocess
 import threading
+
+import torch
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
@@ -29,13 +32,58 @@ build_log: dict = {}     # name -> nvcc's -Xptxas -v report of the last build
 # output written once. The kernels launch through ctypes, so no aten op
 # sees this traffic; utils.profiling.op_cost adds what a call added.
 launch_bytes = 0
+# While runtime/graphs.py captures a CUDA graph: wrapper -> [launches,
+# bytes] recorded into it (a captured launch runs only when the graph
+# is replayed).
+_recording: dict | None = None
 
 
 def count_bytes(*tensors) -> None:
-    """Add the bytes of one launch's inputs and outputs to launch_bytes
-    (the wrappers in ops/ call this where they launch)."""
+    """Add the bytes of one launch's inputs and outputs to launch_bytes."""
     global launch_bytes
     launch_bytes += sum(t.nbytes for t in tensors)
+
+
+def note_launch(wrapper, *tensors) -> None:
+    """Count one launch of ``wrapper``'s kernel in ``wrapper.launches``
+    and its inputs' and outputs' bytes in launch_bytes (the wrappers in
+    ops/ call this where they launch). Inside a CUDA graph capture the
+    launch is recorded instead, and each replay of the graph counts it
+    (``note_replay``); a capture outside ``recording()`` raises."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        if _recording is None:
+            raise RuntimeError(
+                f"{wrapper.__name__} was captured outside "
+                f"runtime.graphs.CapturedProgram: its replays would not "
+                f"be counted")
+        rec = _recording.setdefault(wrapper, [0, 0])
+        rec[0] += 1
+        rec[1] += sum(t.nbytes for t in tensors)
+        return
+    wrapper.launches += 1
+    count_bytes(*tensors)
+
+
+@contextlib.contextmanager
+def recording():
+    """The launches captured inside the block, as {wrapper: [launches,
+    bytes]} (runtime/graphs.py wraps a capture in it)."""
+    global _recording
+    if _recording is not None:
+        raise RuntimeError("kernel launch recordings do not nest")
+    _recording = {}
+    try:
+        yield _recording
+    finally:
+        _recording = None
+
+
+def note_replay(recorded: dict) -> None:
+    """Count one replay of a graph whose capture recorded ``recorded``."""
+    global launch_bytes
+    for wrapper, (n, nbytes) in recorded.items():
+        wrapper.launches += n
+        launch_bytes += nbytes
 
 
 def nvcc_path() -> str:

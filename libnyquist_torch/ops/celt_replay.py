@@ -37,7 +37,7 @@ import functools
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import resident, resolve_device
 from ..formats.opus.celt_tables import ORDERY_TABLE, mode48000
 from ..formats.opus.iy_split import (
     EPSILON, LF_FOLD, LF_NOISE, LF_PVQ, LF_PVQ_IDX, SPREAD_NONE,
@@ -591,13 +591,11 @@ def _apply_chain_static(x, steps):
                 # out[o*N0+j] = in[j*stride+i], o = ordery[i] (or i)
                 t = seg.reshape(Fb + (N0, stride)).transpose(-1, -2)
                 if had:
-                    t = t.index_select(-2, torch.as_tensor(
-                        _deint_rows(stride), device=x.device))
+                    t = t.index_select(-2, _deint_rows_t(stride, x.device))
             else:  # "int"
                 t = seg.reshape(Fb + (stride, N0))
                 if had:
-                    t = t.index_select(-2, torch.as_tensor(
-                        ORDERY_TABLE[stride], device=x.device))
+                    t = t.index_select(-2, _ordery_t(stride, x.device))
                 t = t.transpose(-1, -2)
             out = t.reshape(Fb + (L,))
         x = out if L == N else torch.cat([out, x[..., L:]], dim=-1)
@@ -611,6 +609,33 @@ def _deint_rows(stride):
     inv = np.empty_like(ordy)
     inv[ordy] = np.arange(stride)
     return inv
+
+
+def _deint_rows_t(stride, device):
+    """_deint_rows(stride), resident on the device."""
+    return resident(("replay_deint_rows", stride),
+                    lambda: _deint_rows(stride), device)
+
+
+def _ordery_t(stride, device):
+    """ORDERY_TABLE[stride] (the interleave's row order), resident on the
+    device."""
+    return resident(("replay_ordery", stride),
+                    lambda: np.asarray(ORDERY_TABLE[stride], np.int64),
+                    device)
+
+
+def _band_of_position(LM, start, device):
+    """[band_off[nb] - band_off[start]] int64: for each position of bands
+    start .. nb-1, its band's index counted from start; resident on the
+    device."""
+    def build():
+        mode = mode48000()
+        eB = np.asarray(mode.eBands, np.int64)[: mode.nbEBands + 1]
+        widths = np.diff(eB[start:]) << LM
+        return np.repeat(np.arange(len(widths)), widths)
+
+    return resident(("replay_band_of_position", LM, start), build, device)
 
 
 def _build_rotation_pass(rot_spec, band_off, F):
@@ -659,7 +684,6 @@ def _replay_builder(static_key):
     norm_len = max(int(band_off[nb - 1]) - norm_offset, 1)
     rotate = (_build_rotation_pass(rot_spec, band_off, F)
               if rot_spec is not None else None)
-    widths = [int(band_off[i + 1] - band_off[i]) for i in range(start, nb)]
     head = int(band_off[start])
     tail = nmax - int(band_off[nb])
     f32 = torch.float32
@@ -673,9 +697,8 @@ def _replay_builder(static_key):
 
     def per_position(per_band, head_fill, tail_fill):
         """[2F, nb - start] per-band values -> [2F, nmax] per position."""
-        dev = per_band.device
-        out = per_band.repeat_interleave(
-            torch.as_tensor(widths, device=dev), dim=1)
+        out = per_band.index_select(
+            1, _band_of_position(LM, start, per_band.device))
         parts = []
         if head > 0:
             parts.append(out.new_full((2 * F, head), head_fill))
@@ -901,8 +924,10 @@ def _replay_builder(static_key):
             # slices, and the gains broadcast back band-wise
             ren_rows = arrs["ren_c"] * F + arrs["ren_f"]
             flags = torch.zeros(2 * F + 1, nb, dtype=torch.bool, device=dev)
+            # (the flag values come from the device: a Python True
+            # would be a host copy)
             flags[torch.where(arrs["ren_on"], ren_rows, 2 * F),
-                  arrs["ren_b"]] = True
+                  arrs["ren_b"]] = arrs["ren_on"]
             ss = torch.stack(
                 [spec[:, int(band_off[b]) : int(band_off[b + 1])]
                  .square().sum(dim=1) for b in range(start, nb)], dim=1)

@@ -288,8 +288,8 @@ def comb_filter_cuda(x, hist, T0, T1, gains0, gains1, fade, *,
                 stream)
         if rc != 0:
             raise RuntimeError(f"comb kernel launch failed: CUDA error {rc}")
-        comb_filter_cuda.launches += 1
-        kernels.count_bytes(x, hist, T0, T1, gains0, gains1, fade, y)
+        kernels.note_launch(comb_filter_cuda, x, hist, T0, T1, gains0,
+                            gains1, fade, y)
     elif step_counts is not None:
         step_counts.zero_()
     # the last HIST samples of [hist, y]

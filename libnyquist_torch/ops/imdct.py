@@ -27,6 +27,8 @@ import functools
 import numpy as np
 import torch
 
+from ..device import resident
+
 
 def celt_window(overlap: int) -> np.ndarray:
     """CELT's power-of-sine window."""
@@ -146,19 +148,6 @@ def celt_synthesis_matrices_paired(N: int, overlap: int, B: int = 1):
     return T_main, T_tailpad, T_tail
 
 
-_DEVICE_MATS: dict = {}
-
-
-def _on_device(key, build, device: torch.device) -> torch.Tensor:
-    """Synthesis matrices uploaded once per (matrix, device)."""
-    k = (key, str(device))
-    t = _DEVICE_MATS.get(k)
-    if t is None:
-        t = torch.from_numpy(np.ascontiguousarray(build())).to(device)
-        _DEVICE_MATS[k] = t
-    return t
-
-
 def _synthesize(spectra, matrix, init_tail, n2: int, overlap: int):
     """[F, n2] spectra @ [n2, n2+ov] -> (pcm [F*n2], tails [F+1, ov])."""
     c = spectra @ matrix                                  # [F, n2 + ov]
@@ -190,7 +179,7 @@ def celt_imdct_batch_padded(
     """
     n2 = B * (N // 2)
     dev = spectra.device
-    M = _on_device(("T", N, overlap, B),
+    M = resident(("imdct_T", N, overlap, B),
                    lambda: celt_synthesis_matrix(N, overlap, B), dev)
     if init_tail is None:
         init_tail = torch.zeros(overlap, dtype=torch.float32, device=dev)
@@ -228,10 +217,10 @@ def celt_imdct_rows(
     Returns (pcm [R, F * B*N//2], per-frame tails [R, F, overlap]).
     """
     dev = spectra.device
-    Tm = _on_device(("Tm", N, overlap, B),
+    Tm = resident(("imdct_Tm", N, overlap, B),
                     lambda: celt_synthesis_matrices_paired(N, overlap, B)[0],
                     dev)
-    Tp = _on_device(("Tp", N, overlap, B),
+    Tp = resident(("imdct_Tp", N, overlap, B),
                     lambda: celt_synthesis_matrices_paired(N, overlap, B)[1],
                     dev)
     if tails is None:

@@ -269,8 +269,7 @@ def rotate_plane_cuda(x, pk, th, g, sigmas, band_off):
                 g.data_ptr(), y.data_ptr(), W, nmax, R, mask, stream)
         if rc != 0:
             raise RuntimeError(f"rot kernel launch failed: CUDA error {rc}")
-        rotate_plane_cuda.launches += 1
-        kernels.count_bytes(x, pk, th, g, y)
+        kernels.note_launch(rotate_plane_cuda, x, pk, th, g, y)
     else:
         y.copy_(x)
     return y

@@ -16,6 +16,8 @@ import functools
 import numpy as np
 import torch
 
+from ..device import resident
+
 BLOCK = 128
 COEF = 0.85000610351562500
 
@@ -29,18 +31,23 @@ def _toeplitz(coef: float, block: int) -> np.ndarray:
     return T.astype(np.float32)
 
 
-_DEVICE_T: dict = {}
-
-
 def _toeplitz_t(coef: float, device: torch.device) -> torch.Tensor:
-    """T transposed, uploaded once per (coef, device)."""
-    k = (coef, str(device))
-    t = _DEVICE_T.get(k)
-    if t is None:
-        t = torch.from_numpy(
-            np.ascontiguousarray(_toeplitz(coef, BLOCK).T)).to(device)
-        _DEVICE_T[k] = t
-    return t
+    """T transposed, resident on the device."""
+    return resident(("deemph_T", coef, BLOCK),
+                    lambda: _toeplitz(coef, BLOCK).T, device)
+
+
+def _carry_terms(coef: float, device: torch.device):
+    """(coef^BLOCK, [coef^1 .. coef^BLOCK]) in float32, resident on the
+    device: the block carry's decay and the tail's powers."""
+    c32 = torch.tensor(coef, dtype=torch.float32)
+    decay = resident(("deemph_decay", coef, BLOCK), lambda: c32 ** BLOCK,
+                     device)
+    powers = resident(
+        ("deemph_powers", coef, BLOCK),
+        lambda: c32 ** torch.arange(1, BLOCK + 1, dtype=torch.float32),
+        device)
+    return decay, powers
 
 
 def row_products(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
@@ -78,14 +85,11 @@ def deemphasis(x: torch.Tensor, mem: torch.Tensor, coef: float = COEF,
     # Block carries: c_n = coef^L * c_{n-1} + y0_last[n]; contributions
     # from two blocks back vanish below float32 resolution, so the exact
     # scan reduces to a single shifted multiply-add.
-    c32 = torch.tensor(coef, dtype=torch.float32, device=x.device)
+    decay, powers = _carry_terms(coef, x.device)
     last = y0[:, :, -1]                                   # [B, nblk]
-    decay = c32 ** BLOCK
     shifted = torch.cat([mem[:, None], last[:, :-1]], dim=1)
     carries = last + decay * shifted                      # c_n
     prev_carry = torch.cat([mem[:, None], carries[:, :-1]], dim=1)
     # Add the carried tail: y[n, i] = y0[n, i] + coef^(i+1) * c_{n-1}.
-    powers = c32 ** torch.arange(1, BLOCK + 1, dtype=torch.float32,
-                                 device=x.device)
     y = y0 + prev_carry[:, :, None] * powers[None, None, :]
     return y.reshape(B, S), carries[:, -1]

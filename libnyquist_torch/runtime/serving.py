@@ -16,7 +16,10 @@ per-stream. Two shapes:
 ``run_stream_batched`` is the main path: it replays each stream's PVQ
 value plane on the device from its host trace (``ops/celt_replay.py``)
 into the layout ``run_synthesis_batched`` takes (rows ordered
-``c*K + k``) and runs the step loop on it.
+``c*K + k``) and runs the step loop on it. On a CUDA device a batch
+whose static keys were seen before runs the whole program, replay and
+synthesis, as one CUDA graph (runtime/graphs.py), as the reference
+compiles ``make_opus_stream_program_batched`` once per static key.
 
 The same batching serves MP3 (``synthesize_mp3_streams``: the IMDCT and
 QMF products of ``ops/mp3_synth.py`` over [S, G] granule batches),
@@ -29,7 +32,9 @@ overlap-add as two gathers planned on the host by ``vorbis_lap_plan``).
 
 from __future__ import annotations
 
+import collections
 import functools
+import threading
 from typing import List
 
 import numpy as np
@@ -45,6 +50,7 @@ from ..ops import comb as comb_ops
 from ..ops import imdct as imdct_ops
 from ..ops import mp3_synth
 from ..ops import scan_iir
+from . import graphs
 from .batching import bucket_size
 from .opus_pipeline import (
     CELT_SIG_SCALE,
@@ -439,6 +445,18 @@ def run_synthesis_batched(spec, synth, K, CC, n_steps, f_chunk, *,
     return acc.reshape(CC, K).T, pcm_all
 
 
+def _check_streams(streams, K):
+    """(F, N) the K streams share; raises on a count or shape mismatch."""
+    if len(streams) != K:
+        raise ValueError(f"{len(streams)} streams, expected K = {K}")
+    F, N = streams[0][1][:2]
+    for k, (_, key) in enumerate(streams):
+        if key[:2] != (F, N):
+            raise ValueError(
+                f"stream {k} has (F, N) = {key[:2]}, expected {(F, N)}")
+    return F, N
+
+
 def replay_streams(streams, K, CC):
     """Replay K streams' PVQ value planes on the device into the
     synthesis layout.
@@ -451,13 +469,7 @@ def replay_streams(streams, K, CC):
     rotation-kernel launch per raw-iy stream) and written into its rows.
     Returns spec [CC*K, F, N], rows ordered channel-major (``c*K + k``).
     """
-    if len(streams) != K:
-        raise ValueError(f"{len(streams)} streams, expected K = {K}")
-    F, N = streams[0][1][:2]
-    for k, (_, key) in enumerate(streams):
-        if key[:2] != (F, N):
-            raise ValueError(
-                f"stream {k} has (F, N) = {key[:2]}, expected {(F, N)}")
+    F, N = _check_streams(streams, K)
     spec = None
     for k, (arrs, key) in enumerate(streams):
         fq = replay_ops._replay_builder(key)(arrs)       # [CCout*F, N]
@@ -471,8 +483,85 @@ def replay_streams(streams, K, CC):
     return spec
 
 
+def _stream_program(streams, synth, K, CC, n_steps, f_chunk, with_synth,
+                    with_comb, with_deemph):
+    """The serving program's body, eager: the replay of every stream,
+    then the synthesis step loop. The graph route records this."""
+    spec = replay_streams(streams, K, CC)
+    if not with_synth:
+        return spec.sum(dim=(1, 2)).reshape(CC, K).T, None
+    return run_synthesis_batched(spec, synth, K, CC, n_steps, f_chunk,
+                                 with_comb=with_comb,
+                                 with_deemph=with_deemph)
+
+
+PROGRAMS_KEPT = 8          # captured programs kept, least recent dropped
+SIGHTINGS_KEPT = 256       # program keys run eagerly once, least recent dropped
+_PROGRAMS: "collections.OrderedDict" = collections.OrderedDict()
+_SIGHTED: "collections.OrderedDict" = collections.OrderedDict()
+_PROGRAMS_LOCK = threading.Lock()
+# how each "auto" call ran: "eager" (a first sighting), "captured" (the
+# second: warm-up, capture and a replay), "replayed"
+route_counts: "collections.Counter" = collections.Counter()
+
+
+def clear_programs() -> None:
+    """Drop every captured serving program (and its memory pool) and
+    every sighting."""
+    with _PROGRAMS_LOCK:
+        _PROGRAMS.clear()
+        _SIGHTED.clear()
+
+
+def _program_key(streams, synth, K, CC, n_steps, f_chunk, flags):
+    """What fixes a captured program: the static keys, every input's
+    shape, dtype and device, the batch shape and the stage switches."""
+    keys = tuple(key for _, key in streams)
+    sig = tuple((tuple(t.shape), t.dtype, str(t.device)) for t in
+                graphs.tensors_of(([a for a, _ in streams], synth)))
+    return (keys, K, CC, n_steps, f_chunk, flags, sig)
+
+
+def _kept_program(pkey):
+    with _PROGRAMS_LOCK:
+        prog = _PROGRAMS.get(pkey)
+        if prog is not None:
+            _PROGRAMS.move_to_end(pkey)
+        return prog
+
+
+def sighted_before(pkey) -> bool:
+    """Whether ``pkey`` was sighted before (among the last SIGHTINGS_KEPT
+    keys); notes this sighting."""
+    with _PROGRAMS_LOCK:
+        seen = pkey in _SIGHTED
+        _SIGHTED[pkey] = None
+        _SIGHTED.move_to_end(pkey)
+        while len(_SIGHTED) > SIGHTINGS_KEPT:
+            _SIGHTED.popitem(last=False)
+        return seen
+
+
+def _capture(pkey, streams, synth, K, CC, n_steps, f_chunk, flags):
+    """The serving program for ``pkey``, captured now
+    (runtime/graphs.py) and kept."""
+    keys = pkey[0]
+
+    def body(arrs_list, synth_static):
+        return _stream_program(list(zip(arrs_list, keys)), synth_static, K,
+                               CC, n_steps, f_chunk, *flags)
+
+    prog = graphs.CapturedProgram(body, [a for a, _ in streams], synth)
+    with _PROGRAMS_LOCK:
+        _PROGRAMS[pkey] = prog
+        while len(_PROGRAMS) > PROGRAMS_KEPT:
+            _PROGRAMS.popitem(last=False)
+    return prog
+
+
 def run_stream_batched(streams, synth, K, CC, n_steps, f_chunk, *,
-                       with_synth=True, with_comb=True, with_deemph=True):
+                       with_synth=True, with_comb=True, with_deemph=True,
+                       route=None):
     """The K-stream serving program: device replay of every stream's
     trace, then the synthesis step loop (at K = 1, the single-stream
     program).
@@ -480,18 +569,51 @@ def run_stream_batched(streams, synth, K, CC, n_steps, f_chunk, *,
     Args:
       streams: per stream ``(arrs, static_key)`` (see replay_streams).
       synth: device dict from synth_from_numpy.
+      route: how the program runs (runtime/graphs.py):
+        "eager" (the default, and the only route, on the CPU) runs it op
+        by op. "graph" runs it as one CUDA graph, captured on the first
+        call for these static keys, shapes and switches (an eager
+        warm-up, then the capture) and replayed after it: the inputs are
+        copied into the graph's buffers and the results copied out.
+        "auto" (the default on a CUDA device) replays a program already
+        captured, captures one on the second sighting of its key and
+        runs a first sighting eagerly: a capture costs two to three
+        eager runs, and a batch of distinct streams seldom repeats its
+        key. ``route_counts`` counts which way "auto" went. A capture
+        that fails raises; nothing carries on eagerly instead.
     Returns (acc [K, CC] per-row PCM sums, pcm [CC*K, F*N]) as
     run_synthesis_batched does. with_synth=False stops after the replay
     and returns (the per-row sums of the replayed spectra [K, CC], None);
     with_comb / with_deemph switch a synthesis stage off. The switches
     serve the per-stage time split; serving runs with all three on.
     """
-    spec = replay_streams(streams, K, CC)
-    if not with_synth:
-        return spec.sum(dim=(1, 2)).reshape(CC, K).T, None
-    return run_synthesis_batched(spec, synth, K, CC, n_steps, f_chunk,
-                                 with_comb=with_comb,
-                                 with_deemph=with_deemph)
+    _check_streams(streams, K)
+    flags = (with_synth, with_comb, with_deemph)
+    dev = graphs.tensors_of(streams[0][0])[0].device
+    route = route or ("auto" if dev.type == "cuda" else "eager")
+    if route not in ("auto", "graph", "eager"):
+        raise ValueError(f"route {route!r}: expected 'auto', 'graph' or "
+                         f"'eager'")
+    if route != "eager" and dev.type != "cuda":
+        raise ValueError(f"the {route} route runs on a CUDA device, not "
+                         f"{dev}")
+    args = (streams, synth, K, CC, n_steps, f_chunk)
+    prog = None
+    if route != "eager":
+        pkey = _program_key(*args, flags)
+        prog = _kept_program(pkey)
+        if route == "auto":
+            how = ("replayed" if prog is not None else
+                   "captured" if sighted_before(pkey) else "eager")
+            route_counts[how] += 1
+            if how == "eager":
+                route = "eager"
+        if prog is None and route != "eager":
+            prog = _capture(pkey, *args, flags)
+    if route == "eager":
+        return _stream_program(*args, *flags)
+    acc, pcm = prog([a for a, _ in streams], synth)
+    return acc.clone(), None if pcm is None else pcm.clone()
 
 
 # --------------------------------------------------------------------------

@@ -113,3 +113,26 @@ def test_headline_sums_match_jax_program(headline, jbench):
     got = np.asarray(headline["config"]["row_sums"])
     assert got.shape == ref.shape == (K, CC)
     assert np.abs(got - ref).max() <= 1e-3
+
+
+def test_route_splits_on_the_cpu_read_the_eager_route(monkeypatch):
+    """route_splits on the CPU: one split, the eager route's (the only
+    route there), each variant run by that route, with the replay's and
+    the program's seconds beside it under the route's name. (The
+    program's own results are the headline tests'; here it is a stub
+    that notes its flags.)"""
+    import torch
+
+    calls = []
+    monkeypatch.setattr(tb, "_program", lambda prep, **flags: (
+        lambda: calls.append(flags)))
+    dev = torch.device("cpu")
+    splits, side = tb.route_splits(2, dev, {"K": 2})
+    assert {f["route"] for f in calls} == {"eager"}
+    assert len(calls) == 4 * (1 + tb.SPLIT_ROUNDS)
+    assert list(splits) == ["eager"] and tb._route(dev) == "eager"
+    assert set(splits["eager"]) == {"replay_s", "imdct_s", "comb_s",
+                                    "deemph_s", "full_s", "noise_s"}
+    assert side == {"replay_s_eager": splits["eager"]["replay_s"],
+                    "full_s_eager": splits["eager"]["full_s"]}
+    assert all(math.isfinite(v) and v >= 0 for v in splits["eager"].values())
